@@ -14,6 +14,7 @@ import re
 import subprocess
 import sys
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -67,13 +68,13 @@ def world(tmp_path_factory):
 def cli_runs(world):
     """Each package's FID CLI and --save_stats on the same inputs, once."""
     root, out = world["root"], {}
-    for name, main in (("jax", jfid.main), ("torch", tfid.main)):
+    for name, main, device in (("jax", jfid.main, []), ("torch", tfid.main, ["--device", "cpu"])):
         saved = str(root / f"fid_{name}.txt")
         main(["--path1", world["a"], "--path2", world["b"], "--weights", world["weights"],
-              "--sqrtm", "eigh", "--batch-size", "4", "--saved_file", saved])
+              "--sqrtm", "eigh", "--batch-size", "4", "--saved_file", saved, *device])
         stats_npz = str(root / f"stats_a_{name}.npz")
         main(["--path1", world["a"], "--save_stats", stats_npz, "--weights", world["weights"],
-              "--batch-size", "4"])
+              "--batch-size", "4", *device])
         out[name] = {"saved": saved, "stats": stats_npz}
     return out
 
@@ -112,7 +113,7 @@ def test_npz_paths_and_o_fid_match_jax(world, cli_runs):
     own label, and both packages agree on the float64 host path to 1e-8."""
     npz_t, npz_j = cli_runs["torch"]["stats"], cli_runs["jax"]["stats"]
     saved_t, saved_j = str(world["root"] / "ofid_t.txt"), str(world["root"] / "ofid_j.txt")
-    to_fid.main(["--path1", npz_t, "--path2", npz_j, "--sqrtm", "eigh", "--saved_file", saved_t])
+    to_fid.main(["--path1", npz_t, "--path2", npz_j, "--sqrtm", "eigh", "--saved_file", saved_t, "--device", "cpu"])
     jo_fid.main(["--path1", npz_t, "--path2", npz_j, "--sqrtm", "eigh", "--saved_file", saved_j])
     with open(saved_t) as f:
         text = f.read()
@@ -121,14 +122,73 @@ def test_npz_paths_and_o_fid_match_jax(world, cli_runs):
     assert abs(got - ref) <= 1e-8 * max(1.0, abs(ref))
 
 
-def test_precision_fast_is_refused_with_roadmap_item(world):
-    with pytest.raises(SystemExit):
-        tfid.main(["--path1", world["a"], "--path2", world["b"], "--precision", "fast"])
-    from tise_tpu_torch.core.config import FAST_NOT_PORTED, configure_precision
+@pytest.fixture(scope="module")
+def fast_runs(world):
+    """Each package's FID CLI with --precision fast (host resize) and
+    --save_stats, once.  The JAX flag sets a process-wide matmul precision;
+    it is put back."""
+    root, out = world["root"], {}
+    before = jax.config.jax_default_matmul_precision
+    try:
+        for name, main, device in (("jax", jfid.main, []), ("torch", tfid.main, ["--device", "cpu"])):
+            saved = str(root / f"fid_fast_{name}.txt")
+            main(["--path1", world["a"], "--path2", world["b"], "--weights", world["weights"], "--sqrtm", "eigh",
+                  "--batch-size", "4", "--saved_file", saved, "--precision", "fast", *device])
+            stats_npz = str(root / f"stats_fast_a_{name}.npz")
+            main(["--path1", world["a"], "--save_stats", stats_npz, "--weights", world["weights"],
+                  "--batch-size", "4", "--precision", "fast", *device])
+            out[name] = {"saved": saved, "stats": stats_npz}
+    finally:
+        jax.config.update("jax_default_matmul_precision", before)
+    return out
 
-    assert "ROADMAP.md" in FAST_NOT_PORTED
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        configure_precision("fast")
+
+def test_precision_fast_cli_matches_jax(fast_runs):
+    """--precision fast runs the bf16 folded trunk in both packages.  bf16
+    rounds at other places in the two frameworks (features agree to about
+    1e-2 of their scale), so the distances are held to 5% of each other."""
+    ref = result_io.read_fid_result(fast_runs["jax"]["saved"])
+    got = result_io.read_fid_result(fast_runs["torch"]["saved"])
+    assert np.isfinite(got) and got > 0.0
+    assert abs(got - ref) <= 5e-2 * abs(ref), (got, ref)
+
+
+def test_precision_fast_stats_match_jax_and_the_f32_run(fast_runs, cli_runs):
+    """--save_stats under --precision fast: mu within 0.04 of its scale (the
+    bf16 tolerance of tests/test_inception.py) of the JAX fast run's and of
+    the port's own f32 run's."""
+    mu, sigma = result_io.load_stats_npz(fast_runs["torch"]["stats"])
+    assert mu.shape == (2048,) and sigma.shape == (2048, 2048) and np.isfinite(sigma).all()
+    for other in (fast_runs["jax"]["stats"], cli_runs["torch"]["stats"]):
+        ref_mu, _ = result_io.load_stats_npz(other)
+        assert np.abs(mu - ref_mu).max() <= 0.04 * np.abs(ref_mu).max()
+    f32_mu, _ = result_io.load_stats_npz(cli_runs["torch"]["stats"])
+    assert not np.array_equal(mu, f32_mu)  # the bf16 trunk did run
+
+
+def test_precision_fast_keeps_tf32_off():
+    """"fast" lives in the folded trunk's dtype: TF32 stays off process-wide,
+    so the Fréchet stage of a fast run is IEEE like a highest one's."""
+    from tise_tpu_torch.core.config import configure_precision
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    configure_precision("fast")
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+    with pytest.raises(ValueError):
+        configure_precision("fastest")
+
+
+@pytest.mark.parametrize("main", [tfid.main, to_fid.main])
+def test_cli_without_device_raises_where_there_is_no_card(world, main):
+    """The CLIs run on the card unless told otherwise: with no --device and
+    no CUDA device they raise and name --device cpu; no silent CPU run."""
+    assert not torch.cuda.is_available()
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        main(["--path1", world["a"], "--path2", world["b"], "--weights", world["weights"]])
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        tfid.calculate_fid_given_paths(world["a"], world["b"], None)
 
 
 def test_precision_highest_turns_tf32_off():
@@ -284,11 +344,23 @@ def test_stale_snapshot_is_ignored(world, tmp_path):
 
 
 def test_port_imports_no_jax():
-    """The port's CLIs import nothing of jax, flax or tise_tpu."""
+    """No module of the port, nor chip_smoke.py, imports anything of jax,
+    flax or tise_tpu: every module under tise_tpu_torch/ is imported in a
+    fresh interpreter (tools included), and chip_smoke.py is loaded as a
+    module without running it."""
     code = (
-        "import sys, tise_tpu_torch.metrics.fid, tise_tpu_torch.metrics.o_fid; "
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'tise_tpu')]; "
-        "assert not bad, bad"
+        "import importlib, importlib.util, pkgutil, sys, tise_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(tise_tpu_torch.__path__, 'tise_tpu_torch.')]\n"
+        "for required in ('metrics.fid', 'metrics.o_fid', 'metrics.is_star', 'metrics.o_is', 'ops.kl',\n"
+        "                 'backbones.inception_fast', 'backbones.inception_slim',\n"
+        "                 'tools.mosaic_probe', 'tools.stem_mm_probe'):\n"
+        "    assert 'tise_tpu_torch.' + required in names, required\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'tise_tpu')]\n"
+        "assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, check=True, timeout=120)

@@ -4,10 +4,13 @@
 PyTorch runs float32 convolutions through cuDNN in TF32 by default
 (``torch.backends.cudnn.allow_tf32`` is True), which alone drifts pool3 by
 about 1e-3; ``highest`` therefore turns TF32 off for both convolutions and
-matmuls.
+matmuls.  ``--precision fast`` keeps TF32 off process-wide as well (see
+:func:`configure_precision`).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -40,23 +43,37 @@ PA_SUCCESS_THRESHOLD = 0.6
 #:  RP_coco.py:44, RP_cub.py:153-156)
 NUM_SPLITS = 10
 
-#: the bf16 BN-folded trunk (tise_tpu/backbones/inception_fast.py) is not
-#: ported yet; ``--precision fast`` is refused with this message
-FAST_NOT_PORTED = (
-    "--precision fast is not ported yet: it needs backbones/inception_fast.py "
-    "(ROADMAP.md, Queue 1, next slice: inception_fast)"
-)
-
-
 def configure_precision(mode: str = "highest") -> None:
-    """Set the global matmul/conv precision for metric runs."""
-    if mode == "fast":
-        raise NotImplementedError(FAST_NOT_PORTED)
-    if mode != "highest":
+    """Set the global matmul/conv precision for metric runs.
+
+    Both modes turn TF32 off for convolutions and matmuls.  ``fast`` selects
+    the bf16 BN-folded trunk (backbones/inception_fast.py) in the CLIs that
+    have one; its reduced precision lives in that trunk's dtype, not in a
+    process-wide switch, so the Fréchet stage of a ``fast`` run stays IEEE
+    f32/f64 like a ``highest`` one.  CLIs without a folded trunk (IS*, O-IS)
+    allow TF32 inside the forward only (:func:`tf32_forward`).
+    """
+    if mode not in ("highest", "fast"):
         raise ValueError(f"unknown precision {mode!r}")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+
+
+@contextlib.contextmanager
+def tf32_forward(enabled: bool):
+    """Allow TF32 convolutions and matmuls inside the block only — the
+    card's counterpart of the reference's reduced-pass f32 matmuls under
+    ``--precision fast`` for a trunk that stays f32."""
+    if not enabled:
+        yield
+        return
+    before = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = before
 
 
 def add_precision_flag(parser) -> None:
@@ -64,5 +81,24 @@ def add_precision_flag(parser) -> None:
         "--precision",
         choices=["highest", "fast"],
         default="highest",
-        help="'highest' = reference float parity (TF32 off); 'fast' is not ported yet",
+        help="'highest' = reference float parity (TF32 off, default); 'fast' = max throughput "
+             "(bf16 folded trunk where the metric has one, TF32 forward elsewhere)",
     )
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the card.  A CUDA device that is not there raises: no
+    entry point moves to the CPU unless the caller asks for it."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available (torch.cuda.is_available() is False); "
+            "pass --device cpu (device=\"cpu\") to run on the CPU"
+        )
+    return device
+
+
+def add_device_flag(parser) -> None:
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device of the run; 'cuda' (default) raises when no card is found, "
+                             "'cpu' must be asked for")

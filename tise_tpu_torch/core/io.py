@@ -1,8 +1,12 @@
-"""Result-file and statistics IO for the FID slice (mirrors tise_tpu/core/io.py).
+"""Result-file and statistics IO for the ported metrics (mirrors tise_tpu/core/io.py).
 
 Byte-identical to the reference formats:
-  FID   -> ``FID: <float>``    (fid_score.py:252)
-  O-FID -> ``O-FID: <float>``  (O-FID/fid_score.py:220-222)
+  FID      -> ``FID: <float>``                     (fid_score.py:252)
+  O-FID    -> ``O-FID: <float>``                   (O-FID/fid_score.py:220-222)
+  IS*      -> ``IS = <mean>  +-  <std>``           (inception_score_star_bird.py:209)
+  IS* coco -> ``[Inception Score] mean: {:.5f} std: {:.5f}``
+                                                   (inception_score_star_coco.py:154)
+  O-IS     -> ``O-IS: <mean> +-  <std>``           (object_centric_inception_score.py:127)
 Reference statistics are npz archives with ``mu``/``sigma`` arrays
 (fid_score.py:200-203).
 """
@@ -32,6 +36,18 @@ def write_o_fid_result(path: str, value: float) -> None:
     _write(path, f"O-FID: {value}")
 
 
+def write_is_result(path: str, mean: float, std: float) -> None:
+    _write(path, f"IS = {mean}  +-  {std}")
+
+
+def write_is_coco_result(path: str, mean: float, std: float) -> None:
+    _write(path, "[Inception Score] mean: {:.5f} std: {:.5f}".format(mean, std))
+
+
+def write_o_is_result(path: str, mean: float, std: float) -> None:
+    _write(path, f"O-IS: {mean} +-  {std}")
+
+
 def _floats(path: str) -> List[float]:
     """All float literals in the file, in order."""
     with open(path) as f:
@@ -41,6 +57,15 @@ def _floats(path: str) -> List[float]:
 
 def read_fid_result(path: str) -> float:
     return _floats(path)[0]
+
+
+def read_is_result(path: str) -> Tuple[float, float]:
+    mean, std = _floats(path)[:2]
+    return mean, std
+
+
+read_is_coco_result = read_is_result
+read_o_is_result = read_is_result
 
 
 def load_stats_npz(path: str) -> Tuple[np.ndarray, np.ndarray]:

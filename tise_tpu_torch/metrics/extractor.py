@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from tise_tpu_torch.core.data import Batch, ImageFolderLoader
-from tise_tpu_torch.ops.preprocess import normalize
+from tise_tpu_torch.ops.preprocess import normalize, resize_and_normalize
 
 
 class BatchedExtractor:
@@ -27,6 +27,11 @@ class BatchedExtractor:
 
     ``apply_fn`` takes the normalized float NHWC batch on ``device`` and
     returns a dict of tensors whose first axis is the batch.
+
+    ``device_resize_to``: the host sends native-size uint8 and the device
+    normalizes (K1) and resizes to this size (the library's antialiased
+    bilinear resize ~= PIL, a documented deviation) — the decode-only host
+    path of ``--device-resize-from``.
     """
 
     def __init__(
@@ -35,10 +40,12 @@ class BatchedExtractor:
         *,
         recipe: str,
         device,
+        device_resize_to: Optional[int] = None,
     ):
         self.apply_fn = apply_fn
         self.recipe = recipe
         self.device = torch.device(device)
+        self.device_resize_to = device_resize_to
 
     def __call__(self, images_u8: np.ndarray) -> Dict[str, torch.Tensor]:
         """Launch one batch; returns device tensors (not synchronised)."""
@@ -48,6 +55,8 @@ class BatchedExtractor:
         else:
             x = x.to(self.device)
         with torch.inference_mode():
+            if self.device_resize_to is not None:
+                return self.apply_fn(resize_and_normalize(x, self.recipe, self.device_resize_to))
             return self.apply_fn(normalize(x, self.recipe))
 
     def run(self, loader: Iterable[Batch], keys: Optional[Sequence[str]] = None) -> Dict[str, np.ndarray]:

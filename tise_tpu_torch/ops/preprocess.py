@@ -3,6 +3,10 @@ tise_tpu/ops/preprocess.py:30-114) and kernel K1.
 
 Host workers produce uint8 NHWC batches at the target geometry (exact PIL
 resampling); the uint8 -> normalized-float conversion runs on the device.
+``resize_and_normalize`` is the device-resize path: the host sends native-size
+uint8, K1 normalizes at that size and the library's antialiased bilinear
+resize brings the batch to the trunk's geometry (close to PIL's, not
+bit-equal: a documented deviation of the reference's fast path).
 
 K1, ``normalize_kernel``, is a Triton kernel that replaces the Pallas
 ``tise_tpu/ops/preprocess.py::normalize_pallas``.  It is one fused
@@ -139,3 +143,34 @@ def normalize(images_u8: torch.Tensor, recipe: str, dtype: torch.dtype = torch.f
     if images_u8.device.type == "cpu":
         return normalize_plain(images_u8, recipe, dtype)
     return normalize_kernel(images_u8, recipe, dtype)
+
+
+def resize_and_normalize(
+    images_u8: torch.Tensor, recipe: str, out_size: int, antialias: bool = True,
+    dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Device-side normalize, then resize to ``out_size`` x ``out_size``
+    (mirrors tise_tpu/ops/preprocess.py:117-133: the affine comes first, the
+    triangle filter second).  ``F.interpolate(mode="bilinear",
+    align_corners=False)`` is the half-pixel-centre triangle filter of
+    ``jax.image.resize(method="linear")``; with ``antialias`` both widen it by
+    the scale factor when shrinking and leave it alone when enlarging."""
+    x = normalize(images_u8, recipe, dtype)
+    if tuple(x.shape[1:3]) == (out_size, out_size):
+        return x
+    y = torch.nn.functional.interpolate(
+        x.permute(0, 3, 1, 2), size=(out_size, out_size), mode="bilinear",
+        align_corners=False, antialias=antialias,
+    )
+    return y.permute(0, 2, 3, 1)
+
+
+def resize_bilinear_align_corners(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """NHWC bilinear resize with ``align_corners=True`` (the FID wrapper's
+    and the DAMSM encoder's upsample; mirrors
+    tise_tpu/ops/preprocess.py:136-166, which builds the gather weights by
+    hand because its library has no such mode)."""
+    if tuple(x.shape[1:3]) == tuple(size):
+        return x
+    y = torch.nn.functional.interpolate(x.permute(0, 3, 1, 2), size=tuple(size), mode="bilinear", align_corners=True)
+    return y.permute(0, 2, 3, 1)
