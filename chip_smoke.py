@@ -23,7 +23,11 @@ seeded random weights (BatchNorm statistics calibrated on seeded images):
   * the two probe entry points (``tools.mosaic_probe``, ``tools.stem_mm_probe``).
 
 Launch counters, set to 0 before each path and read after it, show that each
-path ran its kernels.
+path ran its kernels.  For the five layout probes and their library calls it
+also prints the host's time per call (a host clock around 1,000 calls with no
+synchronise inside) beside the event time and the kernel's own duration from
+``torch.profiler``, so that a reader can tell the host's share from the
+device's.
 
 Output: one line per check, the card's name and power limit as nvidia-smi
 gives them, a ``{"kernels": [...]}`` JSON line, and as the last line
@@ -56,8 +60,8 @@ from tise_tpu_torch.core.data import ImageFolderLoader, list_images
 from tise_tpu_torch.metrics import fid, is_star, o_fid, o_is
 from tise_tpu_torch.ops import native, sqrtm, stats
 from tise_tpu_torch.ops.fast_pool import avg_pool_kernel, avg_pool_plain
-from tise_tpu_torch.ops.pallas_kernels import (epilogue_matmul_kernel, epilogue_matmul_plain,
-                                               newton_schulz_sqrtm_pallas)
+from tise_tpu_torch.ops.pallas_kernels import (KERNEL_INSTANCES, epilogue_matmul_instance, epilogue_matmul_kernel,
+                                               epilogue_matmul_plain, newton_schulz_sqrtm_pallas)
 from tise_tpu_torch.ops.preprocess import RECIPES, normalize_kernel, normalize_plain, resize_and_normalize
 from tise_tpu_torch.tools import mosaic_probe, stem_mm_probe
 
@@ -132,6 +136,44 @@ def median_ms(fn, reps: int = 7, inner: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def host_us(fn, calls: int = 1000, reps: int = 3) -> tuple:
+    """(host µs per call, µs per call with the queue drained): a host clock
+    around ``calls`` calls with no synchronise inside, then one synchronise;
+    the median of ``reps``.  The first says how fast the host can enqueue the
+    call; where the second is no larger, the device kept up and the call is
+    bound by the host."""
+    for _ in range(20):
+        fn()
+    enqueue, drained = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        enqueue.append((t1 - t0) / calls * 1e6)
+        drained.append((t2 - t0) / calls * 1e6)
+    return statistics.median(enqueue), statistics.median(drained)
+
+
+def device_us(fn, calls: int = 20):
+    """Device time of one call from torch.profiler (the sum over the kernels
+    it launches), in µs, or None where the profiler shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "device_time_total", 0) for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)  # kernel rows only: an op's row repeats its kernels' time
+    return total / calls if total > 0 else None
+
+
 def ulp_distance(a: torch.Tensor, b: torch.Tensor) -> int:
     """Largest distance in units in the last place between two f32 or bf16
     tensors (ordered-integer view of the bits)."""
@@ -179,7 +221,7 @@ def setup() -> str:
     log(f"[build] {len(libs)} CUDA libraries in {time.perf_counter() - t0:.1f} s (nvcc, parallel)")
     for name, text in native.BUILD_LOG.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry function" in line:
                 log(f"[build] {name}: {line.strip()}")
     return smi
 
@@ -263,26 +305,37 @@ def _psd(gen: torch.Generator, n: int) -> torch.Tensor:
 
 
 def check_epilogue_matmul(gen: torch.Generator) -> dict:
-    max_err, out = 0.0, {}
-    for n in (2048, 1000):
+    """K3 at the main path's n = 2048, at 1000 (16-byte copies with a ragged
+    edge) and at sizes whose rows are not 16-byte aligned or that are smaller
+    than a tile (4-byte copies): against the plain version, and two runs
+    against each other bit for bit."""
+    max_err, out, seen = 0.0, {}, set()
+    for n in (2048, 1000, 1, 127, 130, 2047):
         a = torch.randn(n, n, generator=gen, device="cuda")
         b = torch.randn(n, n, generator=gen, device="cuda")
         got, ref = epilogue_matmul_kernel(a, b, 1.5, -0.5), epilogue_matmul_plain(a, b, 1.5, -0.5)
+        again = epilogue_matmul_kernel(a, b, 1.5, -0.5)
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
         scale = float(ref.abs().max())
         # f32 sums of n products in another order: rtol 1e-4, atol 1e-4 of the output's scale
         require(torch.allclose(got, ref, rtol=1e-4, atol=1e-4 * scale), f"epilogue_matmul n={n}: {err} (scale {scale})")
+        require(torch.equal(got, again), f"epilogue_matmul n={n}: two runs on the same input differ")
         max_err = max(max_err, err)
+        instance = epilogue_matmul_instance(a, b, got)
+        seen.add(instance)
         ms = median_ms(lambda: epilogue_matmul_kernel(a, b, 1.5, -0.5))
         plain_ms = median_ms(lambda: epilogue_matmul_plain(a, b, 1.5, -0.5))
         eye = 1.5 * torch.eye(n, device="cuda")
         library_ms = median_ms(lambda: torch.addmm(eye, a, b, beta=1.0, alpha=-0.5))  # the one call: cuBLAS f32
+        least = bound(3 * n * n * 4, 2 * n ** 3, PEAK_F32)
         gflops = 2 * n ** 3 / ms / 1e6
-        log(f"[K3 epilogue_matmul] n={n}: max_abs_err {err:.3e} (scale {scale:.1f}); kernel {ms:.4f} ms "
-            f"({gflops:.0f} GFLOP/s), plain {plain_ms:.4f} ms, torch.addmm {library_ms:.4f} ms")
+        log(f"[K3 epilogue_matmul] n={n} ({instance}): max_abs_err {err:.3e} (scale {scale:.1f}), two runs bit-equal; "
+            f"kernel {ms:.4f} ms ({gflops:.0f} GFLOP/s), plain {plain_ms:.4f} ms, torch.addmm {library_ms:.4f} ms, "
+            f"bound {least['bound_ms']:.4f} ms ({least['bound_by']})")
         if n == 2048:
-            out = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **bound(3 * n * n * 4, 2 * n ** 3, PEAK_F32)}
+            out = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **least}
+    require(seen == set(KERNEL_INSTANCES), f"the sizes reached only {sorted(seen)} of K3's instances {KERNEL_INSTANCES}")
     prod = (_psd(gen, 2048) @ _psd(gen, 2048)).float()
     t_k = median_ms(lambda: newton_schulz_sqrtm_pallas(prod), reps=3, inner=1, warmup=1)
     t_p = median_ms(lambda: sqrtm.newton_schulz_sqrtm(prod), reps=3, inner=1, warmup=1)
@@ -296,16 +349,57 @@ def check_epilogue_matmul(gen: torch.Generator) -> dict:
     return out
 
 
-def check_layout_probes() -> dict:
-    """P1-P5 at the TPU probes' shapes on seeded random input: P2-P5 bit-equal
-    to plain, P1 (three f32 adds) within rtol 1e-6."""
+def probe_library_calls() -> dict:
+    """For each layout probe the one PyTorch call that computes the same
+    function, where there is one."""
     row = torch.cat([torch.full((32,), 2.0), torch.full((32,), 3.0)]).cuda()  # P5's constant row, built once outside the timing
-    library = {  # the one PyTorch call that computes the same function, where there is one
+    return {
         "lane_split": lambda x: torch.sum(x.view(x.shape[0], -1, 3), -1),
         "dma_minor27": lambda x: torch.mul(x, 2.0),
         "strided_slice": lambda x: x[:, ::2].contiguous(),
         "scratch_stage": lambda x: torch.mul(x, row),
     }
+
+
+def probe_device_times() -> None:
+    """The duration on the device of each probe kernel and of its library
+    call, from torch.profiler.  Run last: nothing timed by events or by the
+    host's clock comes after the profiler has been on."""
+    library = probe_library_calls()
+    for name, (kernel, *_) in mosaic_probe.PROBES.items():
+        x = torch.from_numpy(mosaic_probe.probe_input(name, seed=1)).cuda()
+        times = [("kernel", device_us(lambda: kernel(x)))]
+        if name in library:
+            times.append(("library call", device_us(lambda: library[name](x))))
+        log(f"[probe {name}] on the device (torch.profiler): " + ", ".join(
+            f"{label} {'not measured' if t is None else f'{t:.2f} us'}" for label, t in times))
+
+
+def p5_call_breakdown(row_call) -> None:
+    """Where the host's time in one call of P5's wrapper goes, part by part
+    (host clock, 1,000 calls each), beside its library call."""
+    x = torch.from_numpy(mosaic_probe.probe_input("scratch_stage", seed=1)).cuda()
+    out = mosaic_probe.scratch_stage_kernel(x)  # binds the entry
+    entry, sink = mosaic_probe._SCRATCH_STAGE, type("Sink", (), {"launches": 0})
+    xp, op, stream = x.data_ptr(), out.data_ptr(), native._raw_stream(x.device.index)
+    parts = {
+        "checks": lambda: mosaic_probe._check_input(x, "scratch_stage", 2),
+        "torch.empty_like": lambda: torch.empty_like(x),
+        "two data_ptr()": lambda: (x.data_ptr(), out.data_ptr()),
+        "the C entry alone (ctypes, cudaLaunchKernel)": lambda: entry.call(xp, op, 8, stream),
+        "native.launch (device, stream, C entry, count)": lambda: native.launch(entry, sink, x.device, xp, op, 8),
+        "the whole wrapper": lambda: mosaic_probe.scratch_stage_kernel(x),
+        "torch.mul(x, row)": lambda: row_call(x),
+    }
+    log("[probe scratch_stage] host us a call, by part: " + "; ".join(
+        f"{label} {host_us(fn)[0]:.2f}" for label, fn in parts.items()))
+
+
+def check_layout_probes() -> dict:
+    """P1-P5 at the TPU probes' shapes on seeded random input: P2-P5 bit-equal
+    to plain, P1 (three f32 adds) within rtol 1e-6; then, for each kernel and
+    its library call, the host's time per call beside the event time."""
+    library = probe_library_calls()
     # bytes the function must move: every input element it needs once, every output element once
     needed = {"strided_slice": lambda x, got: 2 * got.numel() * 4}  # only the even columns are read
     out = {}
@@ -323,11 +417,19 @@ def check_layout_probes() -> dict:
                     f"probe {name}: the library call computes another function than the plain version")
             library_ms = median_ms(lambda: library[name](x))
         nbytes = needed[name](x, got) if name in needed else (x.numel() + got.numel()) * 4
+        calls = [("kernel", lambda: kernel(x), ms)]
+        if name in library:
+            calls.append(("library call", lambda: library[name](x), library_ms))
+        for label, fn, event_ms in calls:
+            enqueue, drained = host_us(fn)
+            log(f"[probe {name}] {label}: host {enqueue:.2f} us a call ({drained:.2f} us with the queue drained), "
+                f"events around 10 calls {event_ms * 1e3:.2f} us a call")
         log(f"[probe {name}] {list(shape)} max_abs_err {err:.3e} ({'bit-equal' if torch.equal(got, ref) else f'rtol {rtol}'}); "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library call "
             f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}; {nbytes} bytes")
         require(ok, f"probe {name} disagrees with its plain version: {err}")
         out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **bound(nbytes)}
+    p5_call_breakdown(library["scratch_stage"])
     return out
 
 
@@ -799,6 +901,7 @@ def main() -> None:
     f32 = path_fid_f32(d, state_dict)
     per_path = [f32["launches"], path_fid_fast(d, state_dict, f32), path_is_star(d), path_o_is(d), path_probes()]
     shutil.rmtree(SCRATCH)
+    probe_device_times()
     kernels = []
     for name, (_, route, source, replaces) in KERNELS.items():
         launches = sum(p[name] for p in per_path)

@@ -72,8 +72,8 @@ def test_fast_f32_all_endpoints_match_jax(state_dict, jax_params):
     x = np.random.RandomState(0).randn(2, 75, 75, 3).astype(np.float32) * 0.5
     jmodel = jfast.FastInception(jax_params, jnp.float32)
     jout = jax.jit(lambda v: jmodel(v, endpoints=jinception.ENDPOINTS))(jnp.asarray(x))
-    tout = tfast.FastInception(state_dict, torch.float32)(torch.from_numpy(x), endpoints=tinception.ENDPOINTS)
-    mout = tinception.InceptionV3.from_state_dict(state_dict)(torch.from_numpy(x), endpoints=tinception.ENDPOINTS)
+    tout = tfast.FastInception(state_dict, torch.float32, device="cpu")(torch.from_numpy(x), endpoints=tinception.ENDPOINTS)
+    mout = tinception.InceptionV3.from_state_dict(state_dict, device="cpu")(torch.from_numpy(x), endpoints=tinception.ENDPOINTS)
     assert set(tout) == set(tinception.ENDPOINTS)
     for name in tinception.ENDPOINTS:
         ref, got = np.asarray(jout[name], np.float32), tout[name].numpy()
@@ -91,9 +91,9 @@ def test_fast_bf16_matches_jax_at_bf16_tolerance(state_dict, jax_params):
     x = np.random.RandomState(1).randn(2, 75, 75, 3).astype(np.float32) * 0.5
     jmodel = jfast.FastInception(jax_params, jnp.bfloat16)
     jout = jax.jit(lambda v: jmodel(v, endpoints=("pool3", "logits")))(jnp.asarray(x, jnp.bfloat16))
-    tout = tfast.FastInception(state_dict, torch.bfloat16)(
+    tout = tfast.FastInception(state_dict, torch.bfloat16, device="cpu")(
         torch.from_numpy(x).to(torch.bfloat16), endpoints=("pool3", "logits"))
-    mout = tinception.InceptionV3.from_state_dict(state_dict)(torch.from_numpy(x), endpoints=("pool3", "logits"))
+    mout = tinception.InceptionV3.from_state_dict(state_dict, device="cpu")(torch.from_numpy(x), endpoints=("pool3", "logits"))
     for name in ("pool3", "logits"):
         assert tout[name].dtype == torch.bfloat16
         got = tout[name].float().numpy()
@@ -110,10 +110,10 @@ def test_input_recipe_fid_on_raw_uint8(state_dict, jax_params):
     u8 = np.random.RandomState(2).randint(0, 256, (2, 75, 75, 3)).astype(np.uint8)
     jfolded = jfast.FastInception(jax_params, jnp.float32, input_recipe="fid")
     jout = jax.jit(lambda v: jfolded(v, endpoints=("pool3", "logits")))(jnp.asarray(u8))
-    folded = tfast.FastInception(state_dict, torch.float32, input_recipe="fid")
+    folded = tfast.FastInception(state_dict, torch.float32, input_recipe="fid", device="cpu")
     assert folded.input_recipe == "fid"
     got = folded(torch.from_numpy(u8), endpoints=("pool3", "logits"))
-    plain = tfast.FastInception(state_dict, torch.float32)(
+    plain = tfast.FastInception(state_dict, torch.float32, device="cpu")(
         tpre.normalize(torch.from_numpy(u8), "fid"), endpoints=("pool3", "logits"))
     for name in ("pool3", "logits"):
         for ref in (plain[name].numpy(), np.asarray(jout[name], np.float32)):
@@ -133,14 +133,14 @@ def test_fast_pool_branches_go_through_the_pool_wrapper(state_dict, monkeypatch)
 
     monkeypatch.setattr(tfast, "avg_pool_3x3_s1_p1", spy)
     x = torch.from_numpy(np.random.RandomState(3).randn(1, 75, 75, 3).astype(np.float32))
-    tfast.FastInception(state_dict, torch.bfloat16)(x.to(torch.bfloat16))
+    tfast.FastInception(state_dict, torch.bfloat16, device="cpu")(x.to(torch.bfloat16))
     assert [c[0][-1] for c in calls] == [32, 64, 64, 192, 192, 192, 192, 192, 192]
     assert all(dtype == torch.float32 and pad and contiguous for _, dtype, pad, contiguous in calls)
 
 
 def test_unknown_endpoint_raises(state_dict):
     with pytest.raises(ValueError):
-        tfast.FastInception(state_dict, torch.float32)(torch.zeros(1, 75, 75, 3), endpoints=("mixed7c",))
+        tfast.FastInception(state_dict, torch.float32, device="cpu")(torch.zeros(1, 75, 75, 3), endpoints=("mixed7c",))
 
 
 @pytest.mark.parametrize("src,recipe", [(64, "fid"), (400, "fid"), (331, "half"), (299, "is_star")])

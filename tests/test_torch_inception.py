@@ -37,7 +37,7 @@ def test_all_endpoints_match_jax(state_dict, jax_params, pool_variant):
     x = np.random.RandomState(0).randn(2, 75, 75, 3).astype(np.float32) * 0.5
     jmodel = jinception.InceptionV3(num_classes=NUM_CLASSES, pool_variant=pool_variant)
     jout = jax.jit(lambda p, v: jmodel.apply(p, v, endpoints=jinception.ENDPOINTS))(jax_params, jnp.asarray(x))
-    tmodel = tinception.InceptionV3.from_state_dict(state_dict, pool_variant=pool_variant)
+    tmodel = tinception.InceptionV3.from_state_dict(state_dict, pool_variant=pool_variant, device="cpu")
     tout = tmodel(torch.from_numpy(x), endpoints=tinception.ENDPOINTS)
     assert set(tout) == set(tinception.ENDPOINTS)
     for name in tinception.ENDPOINTS:
@@ -58,7 +58,7 @@ def test_weights_round_trip_through_jax_layout(state_dict):
 
 def test_endpoint_shapes_and_pool3_scale(state_dict):
     """The well-conditioned init keeps pool3 from collapsing at 299 px."""
-    model = tinception.InceptionV3.from_state_dict(state_dict)
+    model = tinception.InceptionV3.from_state_dict(state_dict, device="cpu")
     x = torch.from_numpy(np.random.RandomState(1).randn(1, 299, 299, 3).astype(np.float32) * 0.5)
     out = model(x, endpoints=("maxpool1", "maxpool2", "mixed6e", "pool3"))
     assert out["maxpool1"].shape == (1, 73, 73, 64)
@@ -72,14 +72,14 @@ def test_from_state_dict_ignores_aux_and_counters(state_dict):
     sd = dict(state_dict)
     sd["AuxLogits.fc.weight"] = np.zeros((3, 768), np.float32)
     sd["Mixed_5b.branch1x1.bn.num_batches_tracked"] = np.zeros((), np.int64)
-    model = tinception.InceptionV3.from_state_dict(sd)
+    model = tinception.InceptionV3.from_state_dict(sd, device="cpu")
     assert model.fc.out_features == NUM_CLASSES
 
 
 def test_from_state_dict_rejects_missing_keys(state_dict):
     sd = {k: v for k, v in state_dict.items() if not k.startswith("Mixed_7c.branch_pool")}
     with pytest.raises(KeyError, match="Mixed_7c.branch_pool"):
-        tinception.InceptionV3.from_state_dict(sd)
+        tinception.InceptionV3.from_state_dict(sd, device="cpu")
 
 
 def test_random_state_dict_is_seeded():
@@ -92,6 +92,6 @@ def test_random_state_dict_is_seeded():
 def test_unknown_endpoint_and_variant_raise(state_dict):
     with pytest.raises(ValueError):
         tinception.InceptionV3(pool_variant="slim")
-    model = tinception.InceptionV3.from_state_dict(state_dict)
+    model = tinception.InceptionV3.from_state_dict(state_dict, device="cpu")
     with pytest.raises(ValueError):
         model(torch.zeros(1, 75, 75, 3), endpoints=("mixed7c",))

@@ -1,0 +1,221 @@
+"""The port's launch layer (tise_tpu_torch.ops.native) and the library entry
+points that resolve their device, on the CPU.
+
+``native.launch`` is the one place a ``ctypes``-bound kernel is called from.
+There is no card and no ``nvcc`` here, so it is driven with a stand-in for
+the C function (a Python callable) and stand-ins for the two CUDA lookups;
+what it does with them is what it does with the real ones.  The entry points
+of ``ops.sqrtm`` and ``ops.stats`` run on the card unless the caller asks for
+the CPU, and so do the two trunks: without a card they raise, with
+``device="cpu"`` they agree with the JAX package.  K3's CPU path is held against the Pallas kernel (interpret
+mode) at the sizes its ragged instances see on the card.
+"""
+
+import ctypes
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from tise_tpu.ops import pallas_kernels as jpallas
+from tise_tpu.ops import sqrtm as jsqrtm
+from tise_tpu.ops import stats as jstats
+from tise_tpu_torch.backbones import inception_fast, inception_v3
+from tise_tpu_torch.ops import native, pallas_kernels, sqrtm, stats
+
+
+def _random_psd(rng, d):
+    a = rng.randn(d, d)
+    return a @ a.T / d + 0.1 * np.eye(d)
+
+
+class _Counter:
+    def __init__(self):
+        self.launches = 0
+
+
+class _StandIn:
+    """Takes the place of a bound C entry: records its arguments, returns ``err``."""
+
+    def __init__(self, err=0):
+        self.err, self.calls = err, []
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return self.err
+
+
+@pytest.fixture
+def fake_cuda(monkeypatch):
+    """Device 0 is current and its stream's raw handle is 0xBEEF; entering
+    another device is recorded instead of done."""
+    entered = []
+
+    class _Guard:
+        def __init__(self, index):
+            self.index = index
+
+        def __enter__(self):
+            entered.append(self.index)
+
+        def __exit__(self, *exc):
+            entered.append(("left", self.index))
+
+    monkeypatch.setattr(native, "_current_device", lambda: 0)
+    monkeypatch.setattr(native, "_raw_stream", lambda index: 0xBEEF + index)
+    monkeypatch.setattr(torch.cuda, "device", _Guard)
+    return entered
+
+
+def _entry(stand_in, symbol="tise_stand_in"):
+    fn = native.CFunction("no_such_library", symbol, [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+    fn.call = stand_in
+    return fn
+
+
+class TestLaunch:
+    def test_arguments_arrive_in_order_with_the_stream_last(self, fake_cuda):
+        stand_in, counter = _StandIn(), _Counter()
+        native.launch(_entry(stand_in), counter, torch.device("cuda", 0), 0x1000, 0x2000, 7)
+        assert stand_in.calls == [(0x1000, 0x2000, 7, 0xBEEF)]
+        assert counter.launches == 1
+        assert fake_cuda == []  # the tensors' device is the current one: no guard entered
+
+    def test_another_device_is_made_current_for_the_call_only(self, fake_cuda):
+        stand_in, counter = _StandIn(), _Counter()
+        native.launch(_entry(stand_in), counter, torch.device("cuda", 1), 0x1000, 0x2000, 7)
+        assert stand_in.calls == [(0x1000, 0x2000, 7, 0xBEEF + 1)]  # that device's stream
+        assert fake_cuda == [1, ("left", 1)]
+        assert counter.launches == 1
+
+    def test_nonzero_return_raises_with_the_kernels_name_and_counts_nothing(self, fake_cuda):
+        stand_in, counter = _StandIn(err=9), _Counter()
+        with pytest.raises(RuntimeError, match=r"tise_probe_scratch_stage: CUDA error 9"):
+            native.launch(_entry(stand_in, "tise_probe_scratch_stage"), counter, torch.device("cuda", 0), 1, 2, 3)
+        assert counter.launches == 0
+        assert len(stand_in.calls) == 1
+
+    def test_each_launch_counts_once(self, fake_cuda):
+        stand_in, counter = _StandIn(), _Counter()
+        fn = _entry(stand_in)
+        for _ in range(3):
+            native.launch(fn, counter, torch.device("cuda", 0), 1, 2, 3)
+        assert counter.launches == 3 and len(stand_in.calls) == 3
+
+    def test_first_launch_binds_the_symbol_once(self, fake_cuda, monkeypatch):
+        """An unbound entry asks ``native.library`` for its library at the
+        first launch, sets the argument types, and keeps the function."""
+        stand_in, asked = _StandIn(), []
+
+        class _Lib:
+            tise_stand_in = stand_in
+
+        monkeypatch.setattr(native, "library", lambda name: asked.append(name) or _Lib)
+        argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        fn = native.CFunction("some_library", "tise_stand_in", argtypes)
+        assert fn.call is None
+        counter = _Counter()
+        native.launch(fn, counter, torch.device("cuda", 0), 5, 6)
+        native.launch(fn, counter, torch.device("cuda", 0), 5, 6)
+        assert asked == ["some_library"]
+        assert fn.call is stand_in and stand_in.argtypes == argtypes and stand_in.restype is ctypes.c_int
+        assert counter.launches == 2
+
+
+def test_nothing_is_built_or_bound_on_import():
+    """Importing every module that holds a ctypes kernel loads no library,
+    binds no symbol and starts no compiler."""
+    code = (
+        "import subprocess\n"
+        "def refuse(*a, **k): raise AssertionError('a process was started on import')\n"
+        "subprocess.Popen = refuse\n"
+        "from tise_tpu_torch.ops import native, fast_pool, pallas_kernels\n"
+        "from tise_tpu_torch.tools import mosaic_probe, stem_mm_probe, epilogue_matmul_compare\n"
+        "assert native._LIBS == {} and native.BUILD_LOG == {}\n"
+        "entries = [v for m in (fast_pool, pallas_kernels, mosaic_probe, stem_mm_probe)\n"
+        "           for v in vars(m).values() if isinstance(v, native.CFunction)]\n"
+        "assert len(entries) == 10, len(entries)\n"
+        "assert all(e.call is None for e in entries)\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], check=True, capture_output=True, text=True)
+    assert out.stdout.strip() == "ok"
+
+
+class TestDeviceDefaults:
+    """``device=None`` means the card.  These tests run where there is none."""
+
+    def _no_card(self):
+        if torch.cuda.is_available():
+            pytest.skip("shows what happens without a CUDA device; one is present")
+
+    @pytest.mark.parametrize("method", ["ns", "ns-pallas"])
+    def test_frechet_distance_without_device_raises(self, method):
+        self._no_card()
+        rng = np.random.RandomState(0)
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            sqrtm.frechet_distance(rng.randn(8), _random_psd(rng, 8), rng.randn(8), _random_psd(rng, 8), method=method)
+
+    @pytest.mark.parametrize("method", ["ns", "ns-pallas"])
+    def test_trace_sqrtm_product_without_device_raises(self, method):
+        self._no_card()
+        rng = np.random.RandomState(1)
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            sqrtm.trace_sqrtm_product(_random_psd(rng, 8), _random_psd(rng, 8), method=method)
+
+    def test_init_moments_without_device_raises(self):
+        self._no_card()
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            stats.init_moments(16)
+
+    def test_inception_v3_without_device_raises(self):
+        """The trunk goes to the card unless the CPU is asked for; the device
+        is resolved before any weight is read."""
+        self._no_card()
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            inception_v3.InceptionV3.from_state_dict({})
+
+    def test_fast_inception_without_device_raises(self):
+        self._no_card()
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            inception_fast.FastInception(folded={"w": {}, "fc": None})
+
+    def test_fast_inception_on_the_cpu_when_asked(self):
+        net = inception_fast.FastInception(folded={"w": {}, "fc": None}, device="cpu")
+        assert net.device == torch.device("cpu")
+
+    def test_trace_sqrtm_product_ns_pallas_on_the_cpu_matches_jax(self):
+        """The K3 iteration (plain step on the CPU) against the Pallas one: 1e-4 relative."""
+        rng = np.random.RandomState(5)
+        s1, s2 = _random_psd(rng, 32), _random_psd(rng, 32)
+        ref = jsqrtm.trace_sqrtm_product(s1, s2, method="ns-pallas")
+        got = sqrtm.trace_sqrtm_product(s1, s2, method="ns-pallas", device="cpu")
+        assert abs(got - ref) <= 1e-4 * abs(ref)
+
+    def test_init_moments_on_the_cpu_matches_jax(self):
+        ts, js = stats.init_moments(16, device="cpu"), jstats.init_moments(16)
+        for name in ("count", "total", "outer", "total_c", "outer_c"):
+            got, ref = getattr(ts, name), np.asarray(getattr(js, name))
+            assert got.device.type == "cpu" and got.dtype == torch.float32
+            np.testing.assert_array_equal(got.numpy(), ref, err_msg=name)
+
+
+class TestEpilogueMatmulRaggedSizes:
+    @pytest.mark.parametrize("n", [1, 127, 130])
+    def test_cpu_path_matches_jax_pallas_kernel(self, n):
+        """K3 on CPU tensors against the Pallas kernel (interpret mode) at
+        the sizes that take the ragged instances on the card: smaller than a
+        tile, rows not 16-byte aligned, one tile and a sliver.  f32 sums in
+        another order: 1e-5 of the output's scale."""
+        rng = np.random.RandomState(n)
+        a = rng.randn(n, n).astype(np.float32)
+        b = rng.randn(n, n).astype(np.float32)
+        with pltpu.force_tpu_interpret_mode():
+            ref = np.asarray(jpallas.epilogue_matmul(jnp.asarray(a), jnp.asarray(b), alpha=1.5, beta=-0.5))
+        got = pallas_kernels.epilogue_matmul(torch.from_numpy(a), torch.from_numpy(b), 1.5, -0.5).numpy()
+        assert got.shape == ref.shape == (n, n)
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5 * np.abs(ref).max())

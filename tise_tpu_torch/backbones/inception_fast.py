@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from tise_tpu_torch.backbones.inception_v3 import BN_EPS, ENDPOINTS
+from tise_tpu_torch.core.config import resolve_device
 from tise_tpu_torch.ops.fast_pool import avg_pool_3x3_s1_p1
 from tise_tpu_torch.ops.preprocess import RECIPES
 
@@ -93,12 +94,13 @@ def _max_pool(x: torch.Tensor) -> torch.Tensor:
 
 class FastInception:
     """Pre-folded forward on one device.  ``state`` is the torchvision-layout
-    state dict (or pass ``folded=`` a ``fold_tree`` result)."""
+    state dict (or pass ``folded=`` a ``fold_tree`` result).  ``device`` ``None``
+    is the card, and raises where there is none; the CPU must be asked for."""
 
     def __init__(self, state: Optional[Mapping[str, np.ndarray]] = None, dtype=torch.bfloat16, *,
-                 folded: Optional[Dict[str, object]] = None, input_recipe: Optional[str] = None, device="cpu"):
+                 folded: Optional[Dict[str, object]] = None, input_recipe: Optional[str] = None, device=None):
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         if folded is None:
             folded = fold_tree(state, dtype, input_recipe)
         self.w: Dict[str, Folded] = {

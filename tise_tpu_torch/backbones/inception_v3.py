@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tise_tpu_torch.core.config import resolve_device
 from tise_tpu_torch.ops.fast_pool import avg_pool_3x3_s1_p1
 
 BN_EPS = 0.001  # torchvision inception BatchNorm2d eps
@@ -216,12 +217,14 @@ class InceptionV3(nn.Module):
 
     @classmethod
     def from_state_dict(
-        cls, state: Mapping[str, np.ndarray], *, pool_variant: str = "torch", device="cpu"
+        cls, state: Mapping[str, np.ndarray], *, pool_variant: str = "torch", device=None
     ) -> "InceptionV3":
         """An eval-mode, ``channels_last`` trunk on ``device`` holding a
-        torchvision-layout state_dict (numpy arrays or tensors).  AuxLogits
-        and BN step counters are ignored; the fc may be absent (pool3-only
-        checkpoints), and its width sets ``num_classes``."""
+        torchvision-layout state_dict (numpy arrays or tensors).  ``device``
+        ``None`` is the card, and raises where there is none; the CPU must be
+        asked for.  AuxLogits and BN step counters are ignored; the fc may be
+        absent (pool3-only checkpoints), and its width sets ``num_classes``."""
+        device = resolve_device(device)
         state = {
             k: torch.tensor(np.asarray(v)) for k, v in state.items()
             if not k.startswith("AuxLogits.") and not k.endswith("num_batches_tracked")

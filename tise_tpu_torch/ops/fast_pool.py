@@ -18,7 +18,6 @@ the kernel.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
@@ -54,13 +53,9 @@ def avg_pool_plain(x: torch.Tensor, count_include_pad: bool = True) -> torch.Ten
     return out.to(x.dtype)
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = native.library("avg_pool3x3")
-    fn = lib.tise_avg_pool3x3_s1_p1
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
+_AVG_POOL = native.CFunction(
+    "avg_pool3x3", "tise_avg_pool3x3_s1_p1",
+    [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 
 
 def avg_pool_kernel(x: torch.Tensor, count_include_pad: bool = True) -> torch.Tensor:
@@ -77,14 +72,8 @@ def avg_pool_kernel(x: torch.Tensor, count_include_pad: bool = True) -> torch.Te
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        err = lib.tise_avg_pool3x3_s1_p1(
-            x.data_ptr(), out.data_ptr(), b, h, w, c, _DTYPES[x.dtype], int(count_include_pad),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    native.check(err, "avg_pool3x3")
-    avg_pool_kernel.launches += 1
+    native.launch(_AVG_POOL, avg_pool_kernel, x.device,
+                  x.data_ptr(), out.data_ptr(), b, h, w, c, _DTYPES[x.dtype], int(count_include_pad))
     return out
 
 

@@ -7,6 +7,11 @@ All sources compile in parallel, one ``nvcc`` each.  A library's file name
 carries a hash of its source and flags, so an edited source is rebuilt and a
 stale library is never loaded.  Nothing is built when this module is
 imported: the CPU tests import every module, and there is no ``nvcc`` there.
+
+:func:`launch` is the one place a kernel's C entry is called from: every
+``ctypes``-bound wrapper (K2, K3, P1-P6) declares its entry once as a
+module-level :class:`CFunction` and hands it, its launch counter, the
+tensors' device and the arguments to ``launch``.
 """
 
 from __future__ import annotations
@@ -17,7 +22,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Optional, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tise_tpu_torch"
@@ -31,7 +38,7 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
         raise RuntimeError("nvcc not found: the CUDA kernels are built from source at first use")
@@ -54,7 +61,7 @@ def build_all() -> List[Path]:
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         jobs.append((src, out, tmp, proc))
@@ -82,7 +89,49 @@ def library(name: str) -> ctypes.CDLL:
     return _LIBS[name]
 
 
-def check(err: int, what: str) -> None:
-    """Raise on a non-zero ``cudaGetLastError()`` returned by a C entry."""
+class CFunction:
+    """One C entry of ``csrc/<library>.cu``.  Declaring it builds and loads
+    nothing; the first launch binds the symbol (``argtypes`` and ``restype``
+    set, so pointers are not cut to 32 bits) and keeps it in ``call``, so a
+    later launch costs no lookup."""
+
+    __slots__ = ("library", "symbol", "argtypes", "restype", "call")
+
+    def __init__(self, library: str, symbol: str, argtypes: Sequence, restype=ctypes.c_int):
+        self.library, self.symbol, self.argtypes, self.restype = library, symbol, list(argtypes), restype
+        self.call: Optional[ctypes._CFuncPtr] = None
+
+    def bind(self):
+        if self.call is None:
+            fn = getattr(library(self.library), self.symbol)
+            fn.argtypes, fn.restype = self.argtypes, self.restype
+            self.call = fn
+        return self.call
+
+
+# The current device's index and the current stream's raw handle without a
+# torch.cuda.Stream object or a context manager (what Triton's launcher
+# reads); a PyTorch without these private entries takes the public ones.
+_current_device = getattr(torch._C, "_cuda_getDevice", None) or torch.cuda.current_device
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
+    lambda index: torch.cuda.current_stream(index).cuda_stream)
+
+
+def launch(fn: CFunction, counter, device: torch.device, *args) -> None:
+    """Launch a kernel: call ``fn`` with ``args`` and, as its last argument,
+    the raw handle of ``device``'s current stream; raise on a non-zero
+    ``cudaGetLastError()`` that the entry returns; then add one to
+    ``counter.launches``.  ``device`` is the CUDA device the tensors behind
+    the pointers in ``args`` live on; it is made current for the call only
+    when it is not already.  The caller has checked its tensors: nothing
+    here looks at them, and nothing falls back."""
+    call = fn.call or fn.bind()
+    index = device.index
+    if index == _current_device():
+        err = call(*args, _raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            err = call(*args, _raw_stream(index))
     if err != 0:
-        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+        raise RuntimeError(f"{fn.symbol}: CUDA error {err} at launch")
+    counter.launches += 1

@@ -13,7 +13,6 @@ the JAX path's f32 ``jnp.dot``).  The two plain products stay
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -27,17 +26,20 @@ def epilogue_matmul_plain(a: torch.Tensor, b: torch.Tensor, alpha: float = 3.0, 
     return alpha * eye + beta * (a.float() @ b.float())
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = native.library("epilogue_matmul")
-    fn = lib.tise_epilogue_matmul
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
+_EPILOGUE_MATMUL = native.CFunction(
+    "epilogue_matmul", "tise_epilogue_matmul",
+    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+# a host-side query, no launch: called through bind(), not native.launch
+_EPILOGUE_MATMUL_MODE = native.CFunction(
+    "epilogue_matmul", "tise_epilogue_matmul_mode", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3)
+#: the instances of K3's template, in the order of the C entry's codes
+KERNEL_INSTANCES = ("interior", "ragged16", "ragged4")
 
 
 def epilogue_matmul_kernel(a: torch.Tensor, b: torch.Tensor, alpha: float = 3.0, beta: float = -1.0) -> torch.Tensor:
-    """K3 on CUDA tensors: square contiguous f32 [n, n] inputs."""
+    """K3 on CUDA tensors: square contiguous f32 [n, n] inputs of any n (the
+    kernel picks 16-byte copies where n and the pointers allow them and
+    4-byte copies where they do not)."""
     if not (a.is_cuda and b.is_cuda) or a.device != b.device:
         raise ValueError("epilogue_matmul_kernel takes two CUDA tensors on one device")
     if a.dtype != torch.float32 or b.dtype != torch.float32:
@@ -50,18 +52,20 @@ def epilogue_matmul_kernel(a: torch.Tensor, b: torch.Tensor, alpha: float = 3.0,
     out = torch.empty((n, n), dtype=torch.float32, device=a.device)
     if n == 0:
         return out
-    lib = _lib()
-    with torch.cuda.device(a.device):
-        err = lib.tise_epilogue_matmul(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), n, n, n, alpha, beta,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    native.check(err, "epilogue_matmul")
-    epilogue_matmul_kernel.launches += 1
+    native.launch(_EPILOGUE_MATMUL, epilogue_matmul_kernel, a.device,
+                  a.data_ptr(), b.data_ptr(), out.data_ptr(), n, n, n, alpha, beta)
     return out
 
 
 epilogue_matmul_kernel.launches = 0
+
+
+def epilogue_matmul_instance(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor) -> str:
+    """Which instance of K3 the C entry launches for these tensors: "interior"
+    (no predicates), "ragged16" (16-byte copies, zero fill at the edge) or
+    "ragged4" (4-byte copies).  For checks that every instance is reached."""
+    n = a.shape[0]
+    return KERNEL_INSTANCES[_EPILOGUE_MATMUL_MODE.bind()(a.data_ptr(), b.data_ptr(), out.data_ptr(), n, n, n)]
 
 
 def epilogue_matmul(a: torch.Tensor, b: torch.Tensor, alpha: float = 3.0, beta: float = -1.0) -> torch.Tensor:

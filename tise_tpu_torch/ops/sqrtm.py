@@ -17,6 +17,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from tise_tpu_torch.core.config import resolve_device
 from tise_tpu_torch.ops.pallas_kernels import newton_schulz_sqrtm_pallas
 
 
@@ -74,10 +75,13 @@ def trace_sqrtm_product(
       * "ns":        device Newton–Schulz (float32, ``torch.matmul``);
       * "ns-pallas": device Newton–Schulz with the K3 step;
       * "scipy":     reference scipy.linalg.sqrtm.
-    ``device`` is where the Newton–Schulz methods run (default: CPU).
+    ``device`` is where the Newton–Schulz methods run: ``None`` means the
+    card, and raises where there is none; the CPU must be asked for
+    (``device="cpu"``, where "ns-pallas" takes K3's plain version).  The host
+    methods take no device.
     """
     if method in ("ns", "ns-pallas"):
-        dev = torch.device(device or "cpu")
+        dev = resolve_device(device)
         prod = torch.as_tensor(sigma1, dtype=torch.float32, device=dev) @ torch.as_tensor(
             sigma2, dtype=torch.float32, device=dev
         )
@@ -116,10 +120,12 @@ def frechet_distance(
     eps-diagonal retry on singular products and the imaginary-component check
     (fid_score.py:121-171).  "ns" runs all on ``device`` in f32; "eigh" and
     "ns-pallas" compute the trace term by ``trace_sqrtm_product`` and the
-    rest in float64 on the host.
+    rest in float64 on the host.  ``device=None`` means the card for "ns" and
+    "ns-pallas", and raises where there is none (``device="cpu"`` asks for
+    the CPU); "scipy" and "eigh" run on the host and ignore it.
     """
     if method == "ns":
-        dev = torch.device(device or "cpu")
+        dev = resolve_device(device)
         t = [torch.as_tensor(np.asarray(v), device=dev) for v in (mu1, sigma1, mu2, sigma2)]
         return float(frechet_distance_device(*t))
     mu1 = np.atleast_1d(np.asarray(mu1, np.float64))

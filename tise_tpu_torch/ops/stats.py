@@ -14,6 +14,8 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from tise_tpu_torch.core.config import resolve_device
+
 
 class MomentState(NamedTuple):
     """Sufficient statistics for (mean, covariance)."""
@@ -27,6 +29,9 @@ class MomentState(NamedTuple):
 
 
 def init_moments(dim: int, device: Optional[torch.device] = None) -> MomentState:
+    """Zeroed accumulators on ``device``: ``None`` means the card, and raises
+    where there is none; ``device="cpu"`` asks for the CPU."""
+    device = resolve_device(device)
     z = torch.zeros((dim,), device=device)
     zz = torch.zeros((dim, dim), device=device)
     return MomentState(torch.zeros((), device=device), z, zz, torch.zeros_like(z), torch.zeros_like(zz))

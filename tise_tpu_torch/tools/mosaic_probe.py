@@ -21,7 +21,6 @@ Usage: python -m tise_tpu_torch.tools.mosaic_probe      (needs one CUDA card)
 from __future__ import annotations
 
 import ctypes
-import functools
 import sys
 from typing import Callable, Dict, Tuple
 
@@ -31,18 +30,16 @@ import torch
 from tise_tpu_torch.core.config import resolve_device
 from tise_tpu_torch.ops import native
 
-_VOID, _INT = ctypes.c_void_p, ctypes.c_int
+
+def _entry(name: str, ints: int) -> native.CFunction:
+    """The C entry of one probe: (x, out, ``ints`` sizes, stream)."""
+    return native.CFunction("layout_probes", f"tise_probe_{name}",
+                            [ctypes.c_void_p] * 2 + [ctypes.c_int] * ints + [ctypes.c_void_p])
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = native.library("layout_probes")
-    for name, ints in (("lane_split", 2), ("dma_minor27", 4), ("strided_slice", 2),
-                       ("lane_concat", 1), ("scratch_stage", 1)):
-        fn = getattr(lib, f"tise_probe_{name}")
-        fn.argtypes = [_VOID, _VOID] + [_INT] * ints + [_VOID]
-        fn.restype = _INT
-    return lib
+_LANE_SPLIT, _DMA_MINOR27 = _entry("lane_split", 2), _entry("dma_minor27", 4)
+_STRIDED_SLICE, _LANE_CONCAT = _entry("strided_slice", 2), _entry("lane_concat", 1)
+_SCRATCH_STAGE = _entry("scratch_stage", 1)
 
 
 def _check_input(x: torch.Tensor, name: str, dim: int) -> None:
@@ -52,15 +49,6 @@ def _check_input(x: torch.Tensor, name: str, dim: int) -> None:
         raise ValueError(f"{name}: expected float32 with {dim} dimensions, got {x.dtype} {tuple(x.shape)}")
     if not x.is_contiguous() or x.data_ptr() % 16 != 0:
         raise ValueError(f"{name}_kernel takes a contiguous tensor aligned to 16 bytes")
-
-
-def _launch(fn_name: str, kernel: Callable, x: torch.Tensor, out: torch.Tensor, *ints: int) -> torch.Tensor:
-    with torch.cuda.device(x.device):
-        err = getattr(_lib(), f"tise_probe_{fn_name}")(
-            x.data_ptr(), out.data_ptr(), *ints, torch.cuda.current_stream().cuda_stream)
-    native.check(err, fn_name)
-    kernel.launches += 1
-    return out
 
 
 # -- P1 ----------------------------------------------------------------------
@@ -76,8 +64,9 @@ def lane_split_kernel(x: torch.Tensor) -> torch.Tensor:
     r, width = x.shape
     if width % 3 != 0 or width % 4 != 0 or width * 4 > 48 * 1024:
         raise ValueError(f"lane_split: row width {width} must be a multiple of 12 and fit 48 KB")
-    out = torch.empty((r, width // 3), dtype=torch.float32, device=x.device)
-    return _launch("lane_split", lane_split_kernel, x, out, r, width // 3)
+    out = x.new_empty((r, width // 3))
+    native.launch(_LANE_SPLIT, lane_split_kernel, x.device, x.data_ptr(), out.data_ptr(), r, width // 3)
+    return out
 
 
 # -- P2 ----------------------------------------------------------------------
@@ -98,7 +87,9 @@ def dma_minor27_kernel(x: torch.Tensor) -> torch.Tensor:
     if b % DMA_BLOCK != 0 or n % 4 != 0 or n * 4 > 48 * 1024:
         raise ValueError(f"dma_minor27: blocks [{DMA_BLOCK}, {r}, {m}] must tile {tuple(x.shape)}, "
                          "hold a multiple of 4 floats and fit 48 KB")
-    return _launch("dma_minor27", dma_minor27_kernel, x, torch.empty_like(x), b, DMA_BLOCK, r, m)
+    out = torch.empty_like(x)
+    native.launch(_DMA_MINOR27, dma_minor27_kernel, x.device, x.data_ptr(), out.data_ptr(), b, DMA_BLOCK, r, m)
+    return out
 
 
 # -- P3 ----------------------------------------------------------------------
@@ -114,8 +105,9 @@ def strided_slice_kernel(x: torch.Tensor) -> torch.Tensor:
     r, width = x.shape
     if width % 2 != 0:
         raise ValueError(f"strided_slice: row width {width} must be even")
-    out = torch.empty((r, width // 2), dtype=torch.float32, device=x.device)
-    return _launch("strided_slice", strided_slice_kernel, x, out, r, width // 2)
+    out = x.new_empty((r, width // 2))
+    native.launch(_STRIDED_SLICE, strided_slice_kernel, x.device, x.data_ptr(), out.data_ptr(), r, width // 2)
+    return out
 
 
 # -- P4 ----------------------------------------------------------------------
@@ -131,8 +123,9 @@ def lane_concat_kernel(x: torch.Tensor) -> torch.Tensor:
     n = x.shape[0]
     if x.shape[1] != n:
         raise ValueError(f"lane_concat: expected a square matrix, got {tuple(x.shape)}")
-    out = torch.empty((n, 2 * n), dtype=torch.float32, device=x.device)
-    return _launch("lane_concat", lane_concat_kernel, x, out, n)
+    out = x.new_empty((n, 2 * n))
+    native.launch(_LANE_CONCAT, lane_concat_kernel, x.device, x.data_ptr(), out.data_ptr(), n)
+    return out
 
 
 # -- P5 ----------------------------------------------------------------------
@@ -147,7 +140,9 @@ def scratch_stage_kernel(x: torch.Tensor) -> torch.Tensor:
     _check_input(x, "scratch_stage", 2)
     if x.shape[1] != 64:
         raise ValueError(f"scratch_stage: expected rows of 64, got {tuple(x.shape)}")
-    return _launch("scratch_stage", scratch_stage_kernel, x, torch.empty_like(x), x.shape[0])
+    out = torch.empty_like(x)
+    native.launch(_SCRATCH_STAGE, scratch_stage_kernel, x.device, x.data_ptr(), out.data_ptr(), x.shape[0])
+    return out
 
 
 for _k in (lane_split_kernel, dma_minor27_kernel, strided_slice_kernel, lane_concat_kernel, scratch_stage_kernel):

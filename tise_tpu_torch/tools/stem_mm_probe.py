@@ -19,7 +19,6 @@ Usage: python -m tise_tpu_torch.tools.stem_mm_probe     (needs one CUDA card)
 from __future__ import annotations
 
 import ctypes
-import functools
 import sys
 from typing import Dict, Tuple
 
@@ -60,14 +59,10 @@ def stem_mm_plain(x: torch.Tensor, w: torch.Tensor, nsteps: int) -> Tuple[torch.
     return s.reshape(1, 1), y
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = native.library("stem_mm")
-    lib.tise_stem_mm.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    lib.tise_stem_mm.restype = ctypes.c_int
-    lib.tise_stem_mm_smem_bytes.argtypes = [ctypes.c_int] * 2
-    lib.tise_stem_mm_smem_bytes.restype = ctypes.c_int
-    return lib
+_STEM_MM = native.CFunction("stem_mm", "tise_stem_mm",
+                            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+# a host-side size query, no launch: called through bind(), not native.launch
+_STEM_MM_SMEM_BYTES = native.CFunction("stem_mm", "tise_stem_mm_smem_bytes", [ctypes.c_int] * 2)
 
 
 def stem_mm_kernel(x: torch.Tensor, w: torch.Tensor, nsteps: int, return_last: bool = False):
@@ -92,8 +87,7 @@ def stem_mm_kernel(x: torch.Tensor, w: torch.Tensor, nsteps: int, return_last: b
         raise ValueError(f"n = {n} must be a multiple of 32 (and of {BLOCK_COLS} above it)")
     if nsteps < 1:
         raise ValueError("nsteps must be at least 1")
-    lib = _lib()
-    smem = lib.tise_stem_mm_smem_bytes(k, nb)
+    smem = _STEM_MM_SMEM_BYTES.bind()(k, nb)
     if smem > SMEM_LIMIT:
         raise ValueError(f"k = {k} needs {smem} bytes of shared memory per block; the card gives {SMEM_LIMIT}")
     m_pad = -(-m // BLOCK_ROWS) * BLOCK_ROWS
@@ -101,13 +95,9 @@ def stem_mm_kernel(x: torch.Tensor, w: torch.Tensor, nsteps: int, return_last: b
     s = torch.empty((1, 1), dtype=torch.float32, device=x.device)
     sink = torch.empty(((m_pad // BLOCK_ROWS) * (n // nb) * 256,), dtype=torch.float32, device=x.device)
     y_part = torch.empty((k_slices, m_pad, n), dtype=torch.float32, device=x.device) if return_last else None
-    with torch.cuda.device(x.device):
-        err = lib.tise_stem_mm(
-            x.data_ptr(), w.data_ptr(), s.data_ptr(), y_part.data_ptr() if return_last else None,
-            sink.data_ptr(), m, k, n, nsteps, torch.cuda.current_stream().cuda_stream,
-        )
-    native.check(err, "stem_mm")
-    stem_mm_kernel.launches += 1
+    native.launch(_STEM_MM, stem_mm_kernel, x.device,
+                  x.data_ptr(), w.data_ptr(), s.data_ptr(), y_part.data_ptr() if return_last else None,
+                  sink.data_ptr(), m, k, n, nsteps)
     if return_last:
         return s, y_part.sum(0)[:m]
     return s
