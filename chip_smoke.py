@@ -23,11 +23,15 @@ seeded random weights (BatchNorm statistics calibrated on seeded images):
   * the two probe entry points (``tools.mosaic_probe``, ``tools.stem_mm_probe``).
 
 Launch counters, set to 0 before each path and read after it, show that each
-path ran its kernels.  For the five layout probes and their library calls it
-also prints the host's time per call (a host clock around 1,000 calls with no
-synchronise inside) beside the event time and the kernel's own duration from
-``torch.profiler``, so that a reader can tell the host's share from the
-device's.
+path ran its kernels.  K2 is held to its plain version bit for bit at every
+shape of the main paths, at 1-wide edge shapes and at ragged ones, which
+between them reach each of its instances; each trunk and thin shape prints
+its time against its bytes bound.  For the five layout probes and their
+library calls it also prints the host's time per call (a host clock around
+1,000 calls with no synchronise inside) beside the event time; the kernels'
+own durations from ``torch.profiler`` (K2's shapes and sets, the probes
+beside their library calls) come last, after every other timing, so that a
+reader can tell the host's share from the device's.
 
 Output: one line per check, the card's name and power limit as nvidia-smi
 gives them, a ``{"kernels": [...]}`` JSON line, and as the last line
@@ -58,12 +62,13 @@ from tise_tpu_torch.core.config import (IS_STAR_TEMPERATURE_COCO, IS_STAR_TEMPER
                                         O_IS_TEMPERATURE, configure_precision)
 from tise_tpu_torch.core.data import ImageFolderLoader, list_images
 from tise_tpu_torch.metrics import fid, is_star, o_fid, o_is
-from tise_tpu_torch.ops import native, sqrtm, stats
+from tise_tpu_torch.ops import fast_pool, native, sqrtm, stats
 from tise_tpu_torch.ops.fast_pool import avg_pool_kernel, avg_pool_plain
 from tise_tpu_torch.ops.pallas_kernels import (KERNEL_INSTANCES, epilogue_matmul_instance, epilogue_matmul_kernel,
                                                epilogue_matmul_plain, newton_schulz_sqrtm_pallas)
 from tise_tpu_torch.ops.preprocess import RECIPES, normalize_kernel, normalize_plain, resize_and_normalize
 from tise_tpu_torch.tools import mosaic_probe, stem_mm_probe
+from tise_tpu_torch.tools.kernel_compare import POOL_SHAPES, THIN_POOL_SHAPES, device_us
 
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -77,15 +82,9 @@ N_CUB = 2600       # IS* CUB: shuffled, then the tail beyond 40 batches of 64 is
 N_CROPS = 256      # O-FID and O-IS
 BATCH = 64
 NATIVE = 64        # side of the PNGs on disk
-POOL_SHAPES = [  # (shape, launches per batch): the pool branches of Mixed_5b-d, 6b-e, 7b-c at 299 px
-    ((BATCH, 35, 35, 192), 1), ((BATCH, 35, 35, 256), 1), ((BATCH, 35, 35, 288), 1),
-    ((BATCH, 17, 17, 768), 4), ((BATCH, 8, 8, 1280), 1), ((BATCH, 8, 8, 2048), 1),
-]
-# the thin fan-out slices the fast trunk pools instead (f32, padding counted)
-THIN_POOL_SHAPES = [
-    ((BATCH, 35, 35, 32), 1), ((BATCH, 35, 35, 64), 2), ((BATCH, 17, 17, 192), 4), ((BATCH, 8, 8, 192), 2),
-]
 EDGE_POOL_SHAPES = [(2, 1, 1, 2048), (2, 1, 5, 8), (2, 5, 1, 8)]
+# C not a multiple of 8 (bf16 scalar instance), C not a multiple of 4 (f32 scalar), rows cut into column chunks
+RAGGED_POOL_SHAPES = [(2, 17, 17, 36), (2, 6, 300, 30), (2, 5, 300, 64)]
 STEM_NSTEPS = 512  # dots per launch where P6 is held against its plain loop and timed for the kernels line
 # published peaks of one H100 SXM (NVIDIA's data sheet): device memory, f32
 # outside the tensor cores, dense bf16 in them
@@ -156,22 +155,6 @@ def host_us(fn, calls: int = 1000, reps: int = 3) -> tuple:
         enqueue.append((t1 - t0) / calls * 1e6)
         drained.append((t2 - t0) / calls * 1e6)
     return statistics.median(enqueue), statistics.median(drained)
-
-
-def device_us(fn, calls: int = 20):
-    """Device time of one call from torch.profiler (the sum over the kernels
-    it launches), in µs, or None where the profiler shows no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(getattr(e, "device_time_total", 0) for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA)  # kernel rows only: an op's row repeats its kernels' time
-    return total / calls if total > 0 else None
 
 
 def ulp_distance(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -256,45 +239,62 @@ def check_normalize(gen: torch.Generator) -> dict:
 
 
 def check_avg_pool(gen: torch.Generator) -> dict:
+    """K2 bit for bit (``torch.equal``) against its plain version in f32 and
+    bf16, both count modes, at every shape of the main paths, the 1-wide edge
+    shapes and the ragged ones, which between them reach every instance the
+    wrapper chooses; then each trunk and thin shape timed by events against
+    its bytes bound, and the nine pools of a batch and the nine thin ones as
+    sums (their device times: pool_device_times)."""
     max_err, ms, plain_ms, library_ms, nbytes = 0.0, 0.0, 0.0, 0.0, 0
-    thin = {"kernel": 0.0, "plain": 0.0}
+    thin = {"kernel": 0.0, "plain": 0.0, "bytes": 0}
+    seen = set()
     shapes = [(s, n, "trunk") for s, n in POOL_SHAPES] + [(s, n, "thin") for s, n in THIN_POOL_SHAPES]
-    for shape, per_batch, kind in shapes + [(s, 0, "edge") for s in EDGE_POOL_SHAPES]:
+    for shape, per_batch, kind in shapes + [(s, 0, "edge") for s in EDGE_POOL_SHAPES + RAGGED_POOL_SHAPES]:
         x = torch.randn(shape, generator=gen, device="cuda")
         for include_pad in (True, False):
             for dtype in (torch.float32, torch.bfloat16):
                 xi = x.to(dtype)
                 got, ref = avg_pool_kernel(xi, include_pad), avg_pool_plain(xi, include_pad)
                 torch.cuda.synchronize()
+                instance = fast_pool.pool_geometry(shape, dtype, xi.data_ptr() % 16 == 0).instance
+                seen.add(instance)
                 require(got.dtype == dtype and got.shape == ref.shape, f"pool {shape} dtype/shape")
                 err = float((got.float() - ref.float()).abs().max())
+                log(f"[K2 avg_pool] {str(shape):22s} include_pad={include_pad!s:5s} {str(dtype):15s} {instance:7s} "
+                    f"max_abs_err {err:.3e}")
+                require(torch.equal(got, ref), f"pool {shape} pad={include_pad} {dtype} ({instance}): {err}")
                 if dtype == torch.float32:
-                    require(torch.allclose(got, ref, rtol=1e-6, atol=1e-6), f"pool {shape} pad={include_pad} f32: {err}")
                     max_err = max(max_err, err)
-                else:
-                    require(ulp_distance(got, ref) <= 1, f"pool {shape} pad={include_pad} bf16: {err}")
-                log(f"[K2 avg_pool] {str(shape):22s} include_pad={include_pad!s:5s} {str(dtype):15s} max_abs_err {err:.3e}")
         if kind == "edge":
             continue
         k = median_ms(lambda: avg_pool_kernel(x, True))
         p = median_ms(lambda: avg_pool_plain(x, True))
+        least = bound(2 * x.numel() * 4)["bound_ms"]
+        g = fast_pool.pool_geometry(shape, torch.float32)
+        where = (f"{g.instance}, slice {g.cvb} vectors, bands of {g.band_h} rows, grid {g.grid}, {g.threads} threads; "
+                 f"kernel {k:.4f} ms, bound {least:.4f} ms ({least / k:.1%} of it), plain {p:.4f} ms")
         if kind == "thin":
+            log(f"[K2 avg_pool] thin {str(shape):22s} f32: {where} (x{per_batch} per batch)")
             thin["kernel"] += per_batch * k
             thin["plain"] += per_batch * p
+            thin["bytes"] += per_batch * 2 * x.numel() * 4
             continue
         nchw = x.permute(0, 3, 1, 2)  # channels_last view of the same memory
         lib = median_ms(lambda: torch.nn.functional.avg_pool2d(nchw, 3, 1, 1))
         # F.avg_pool2d divides once by 9 where K2 multiplies twice by 1/3: the same function to f32 rounding
         require(torch.allclose(torch.nn.functional.avg_pool2d(nchw, 3, 1, 1).permute(0, 2, 3, 1),
                                avg_pool_kernel(x, True), rtol=1e-5, atol=1e-6), f"pool {shape} vs F.avg_pool2d")
-        log(f"[K2 avg_pool] {str(shape):22s} f32: kernel {k:.4f} ms, plain {p:.4f} ms, F.avg_pool2d {lib:.4f} ms "
-            f"(x{per_batch} per batch)")
+        log(f"[K2 avg_pool] {str(shape):22s} f32: {where}, F.avg_pool2d {lib:.4f} ms (x{per_batch} per batch)")
         ms += per_batch * k
         plain_ms += per_batch * p
         library_ms += per_batch * lib
         nbytes += per_batch * 2 * x.numel() * 4
-    log(f"[K2 avg_pool] the nine pools of one f32 batch of {BATCH}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"F.avg_pool2d {library_ms:.4f} ms; the nine thin pools of the fast trunk: kernel {thin['kernel']:.4f} ms, "
+    require(seen == set(fast_pool.KERNEL_INSTANCES),
+            f"the shapes reached only {sorted(seen)} of K2's instances {fast_pool.KERNEL_INSTANCES}")
+    least, thin_least = bound(nbytes)["bound_ms"], bound(thin["bytes"])["bound_ms"]
+    log(f"[K2 avg_pool] the nine pools of one f32 batch of {BATCH}: kernel {ms:.4f} ms against a bound of {least:.4f} ms "
+        f"({least / ms:.1%} of it), plain {plain_ms:.4f} ms, F.avg_pool2d {library_ms:.4f} ms. The nine thin pools of "
+        f"the fast trunk: kernel {thin['kernel']:.4f} ms against {thin_least:.4f} ms ({thin_least / thin['kernel']:.1%}), "
         f"plain {thin['plain']:.4f} ms")
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **bound(nbytes)}
 
@@ -359,6 +359,24 @@ def probe_library_calls() -> dict:
         "strided_slice": lambda x: x[:, ::2].contiguous(),
         "scratch_stage": lambda x: torch.mul(x, row),
     }
+
+
+def pool_device_times(gen: torch.Generator) -> None:
+    """K2's duration on the device from torch.profiler: each trunk and thin
+    shape, the nine pools of a batch and the nine thin pools, against their
+    bytes bounds.  Run last, with probe_device_times."""
+    for label, shapes in (("the nine pools of one f32 batch", POOL_SHAPES), ("the nine thin pools", THIN_POOL_SHAPES)):
+        xs, least = [], bound(sum(n * 2 * torch.Size(s).numel() * 4 for s, n in shapes))["bound_ms"]
+        for shape, per_batch in shapes:
+            x = torch.randn(shape, generator=gen, device="cuda")
+            ms = device_us(lambda: avg_pool_kernel(x, True), calls=5) / 1e3
+            b = bound(2 * x.numel() * 4)["bound_ms"]
+            log(f"[K2 avg_pool] {str(shape):22s} on the device (torch.profiler) {ms:.4f} ms, bound {b:.4f} ms "
+                f"({b / ms:.1%} of it)")
+            xs += [x] * per_batch
+        ms = device_us(lambda: [avg_pool_kernel(x, True) for x in xs], calls=5) / 1e3
+        log(f"[K2 avg_pool] {label} on the device (torch.profiler): {ms:.4f} ms against a bound of {least:.4f} ms "
+            f"({least / ms:.1%} of it)")
 
 
 def probe_device_times() -> None:
@@ -901,6 +919,7 @@ def main() -> None:
     f32 = path_fid_f32(d, state_dict)
     per_path = [f32["launches"], path_fid_fast(d, state_dict, f32), path_is_star(d), path_o_is(d), path_probes()]
     shutil.rmtree(SCRATCH)
+    pool_device_times(gen)
     probe_device_times()
     kernels = []
     for name, (_, route, source, replaces) in KERNELS.items():

@@ -6,7 +6,8 @@ reference) and one npz of planted, well-conditioned weights made by numpy
 (tise_tpu_torch.backbones.inception_v3.random_state_dict) in the JAX
 package's pytree layout.  The extractor's batching, padding, legacy drop and
 snapshot semantics are also checked with a cheap stand-in forward, which
-keeps this file well inside the tier-1 time budget.
+keeps this file well inside the tier-1 time budget.  The same CLIs under
+``--precision fast`` are in tests/test_torch_fid_fast.py.
 """
 
 import os
@@ -14,11 +15,11 @@ import re
 import subprocess
 import sys
 
-import jax
 import numpy as np
 import pytest
 import torch
 from PIL import Image
+from threadpoolctl import threadpool_limits
 
 from tise_tpu.backbones import inception_v3 as jinception
 from tise_tpu.core import weights as jweights
@@ -35,6 +36,16 @@ from tise_tpu_torch.ops import stats
 from tise_tpu_torch.ops.preprocess import RECIPES
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_cpu_thread():
+    """torch and BLAS on one thread: the suite runs several workers on the same cores."""
+    with threadpool_limits(1):
+        before = torch.get_num_threads()
+        torch.set_num_threads(1)
+        yield
+        torch.set_num_threads(before)
 
 
 def _write_folder(root, n, seed, block):
@@ -122,64 +133,6 @@ def test_npz_paths_and_o_fid_match_jax(world, cli_runs):
     assert abs(got - ref) <= 1e-8 * max(1.0, abs(ref))
 
 
-@pytest.fixture(scope="module")
-def fast_runs(world):
-    """Each package's FID CLI with --precision fast (host resize) and
-    --save_stats, once.  The JAX flag sets a process-wide matmul precision;
-    it is put back."""
-    root, out = world["root"], {}
-    before = jax.config.jax_default_matmul_precision
-    try:
-        for name, main, device in (("jax", jfid.main, []), ("torch", tfid.main, ["--device", "cpu"])):
-            saved = str(root / f"fid_fast_{name}.txt")
-            main(["--path1", world["a"], "--path2", world["b"], "--weights", world["weights"], "--sqrtm", "eigh",
-                  "--batch-size", "4", "--saved_file", saved, "--precision", "fast", *device])
-            stats_npz = str(root / f"stats_fast_a_{name}.npz")
-            main(["--path1", world["a"], "--save_stats", stats_npz, "--weights", world["weights"],
-                  "--batch-size", "4", "--precision", "fast", *device])
-            out[name] = {"saved": saved, "stats": stats_npz}
-    finally:
-        jax.config.update("jax_default_matmul_precision", before)
-    return out
-
-
-def test_precision_fast_cli_matches_jax(fast_runs):
-    """--precision fast runs the bf16 folded trunk in both packages.  bf16
-    rounds at other places in the two frameworks (features agree to about
-    1e-2 of their scale), so the distances are held to 5% of each other."""
-    ref = result_io.read_fid_result(fast_runs["jax"]["saved"])
-    got = result_io.read_fid_result(fast_runs["torch"]["saved"])
-    assert np.isfinite(got) and got > 0.0
-    assert abs(got - ref) <= 5e-2 * abs(ref), (got, ref)
-
-
-def test_precision_fast_stats_match_jax_and_the_f32_run(fast_runs, cli_runs):
-    """--save_stats under --precision fast: mu within 0.04 of its scale (the
-    bf16 tolerance of tests/test_inception.py) of the JAX fast run's and of
-    the port's own f32 run's."""
-    mu, sigma = result_io.load_stats_npz(fast_runs["torch"]["stats"])
-    assert mu.shape == (2048,) and sigma.shape == (2048, 2048) and np.isfinite(sigma).all()
-    for other in (fast_runs["jax"]["stats"], cli_runs["torch"]["stats"]):
-        ref_mu, _ = result_io.load_stats_npz(other)
-        assert np.abs(mu - ref_mu).max() <= 0.04 * np.abs(ref_mu).max()
-    f32_mu, _ = result_io.load_stats_npz(cli_runs["torch"]["stats"])
-    assert not np.array_equal(mu, f32_mu)  # the bf16 trunk did run
-
-
-def test_precision_fast_keeps_tf32_off():
-    """"fast" lives in the folded trunk's dtype: TF32 stays off process-wide,
-    so the Fréchet stage of a fast run is IEEE like a highest one's."""
-    from tise_tpu_torch.core.config import configure_precision
-
-    torch.backends.cudnn.allow_tf32 = True
-    torch.backends.cuda.matmul.allow_tf32 = True
-    configure_precision("fast")
-    assert not torch.backends.cudnn.allow_tf32
-    assert not torch.backends.cuda.matmul.allow_tf32
-    with pytest.raises(ValueError):
-        configure_precision("fastest")
-
-
 @pytest.mark.parametrize("main", [tfid.main, to_fid.main])
 def test_cli_without_device_raises_where_there_is_no_card(world, main):
     """The CLIs run on the card unless told otherwise: with no --device and
@@ -189,18 +142,6 @@ def test_cli_without_device_raises_where_there_is_no_card(world, main):
         main(["--path1", world["a"], "--path2", world["b"], "--weights", world["weights"]])
     with pytest.raises(RuntimeError, match="--device cpu"):
         tfid.calculate_fid_given_paths(world["a"], world["b"], None)
-
-
-def test_precision_highest_turns_tf32_off():
-    """cuDNN convolutions default to TF32 on Hopper; "highest" turns it off
-    for convolutions and matmuls both."""
-    from tise_tpu_torch.core.config import configure_precision
-
-    torch.backends.cudnn.allow_tf32 = True
-    torch.backends.cuda.matmul.allow_tf32 = True
-    configure_precision("highest")
-    assert not torch.backends.cudnn.allow_tf32
-    assert not torch.backends.cuda.matmul.allow_tf32
 
 
 @pytest.mark.parametrize("value", [0.0, 12.345678901234567, 1e-9, 31.5])

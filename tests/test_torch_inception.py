@@ -12,12 +12,23 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from tise_tpu.backbones import inception_v3 as jinception
 from tise_tpu_torch.backbones import inception_v3 as tinception
 from tise_tpu_torch.core.weights import state_dict_from_jax_params
 
 NUM_CLASSES = 10
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_cpu_thread():
+    """torch and BLAS on one thread: the suite runs several workers on the same cores."""
+    with threadpool_limits(1):
+        before = torch.get_num_threads()
+        torch.set_num_threads(1)
+        yield
+        torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")

@@ -5,17 +5,16 @@ three CLIs end to end.
 Weights are the random slim variables and 2015 constants of
 tests/tf_slim_ref.py and tests/tf2015_ref.py (numpy seeds) saved as npz, and a
 numpy-made 80-class torchvision-layout state dict; both packages read the same
-files.
+files.  The three CLIs end to end are in tests/test_torch_is_cli.py.
 """
 
-import os
-import re
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from PIL import Image
+from threadpoolctl import threadpool_limits
 
 from tests.tf2015_ref import random_2015_consts
 from tests.tf_slim_ref import random_slim_vars
@@ -23,7 +22,6 @@ from tise_tpu.backbones import inception_slim as jslim
 from tise_tpu.backbones import inception_v3 as jinception
 from tise_tpu.core import io as jio
 from tise_tpu.core import weights as jweights
-from tise_tpu.metrics import is_star as jis_star
 from tise_tpu.metrics import o_is as jo_is
 from tise_tpu.ops import kl as jkl
 from tise_tpu_torch.backbones import inception_slim as tslim
@@ -31,7 +29,6 @@ from tise_tpu_torch.backbones.inception_v3 import random_state_dict
 from tise_tpu_torch.core import config as tconfig
 from tise_tpu_torch.core import io as tio
 from tise_tpu_torch.core import weights as tweights
-from tise_tpu_torch.metrics import is_star as tis_star
 from tise_tpu_torch.metrics import o_is as to_is
 from tise_tpu_torch.ops import kl as tkl
 
@@ -39,6 +36,16 @@ TEMPERATURES = (tconfig.IS_STAR_TEMPERATURE_CUB, tconfig.IS_STAR_TEMPERATURE_COC
 
 
 # -- ops/kl -------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_cpu_thread():
+    """torch and BLAS on one thread: the suite runs several workers on the same cores."""
+    with threadpool_limits(1):
+        before = torch.get_num_threads()
+        torch.set_num_threads(1)
+        yield
+        torch.set_num_threads(before)
 
 
 @pytest.mark.parametrize("temperature", TEMPERATURES)
@@ -204,106 +211,6 @@ def test_o_is_logits_match_jax(files):
     got = ex(u8)["logits"]
     assert got.shape == (8, 80)
     _assert_logits_close(got, ref)
-
-
-# -- the CLIs end to end --------------------------------------------------------
-
-
-def _run_pair(files, tag, jmain, tmain, argv):
-    out = {}
-    for name, main, more in (("jax", jmain, []), ("torch", tmain, ["--device", "cpu"])):
-        saved = str(files["root"] / f"{tag}_{name}.txt")
-        main([*argv, "--saved_file", saved, *more])
-        with open(saved) as f:
-            out[name] = f.read()
-    return out
-
-
-def _assert_results_agree(text, pattern, reader_paths):
-    """The file has the reference's format; (mean, std) agree to 1e-4
-    relative (std also within 1e-4 of the mean: it is a difference of
-    scores); equal values give equal bytes."""
-    assert re.fullmatch(pattern, text["torch"]), text["torch"]
-    (jm, js), (tm, ts) = reader_paths
-    assert np.isfinite(tm) and tm >= 1.0
-    assert tm == pytest.approx(jm, rel=1e-4)
-    assert abs(ts - js) <= 1e-4 * max(abs(js), jm)
-    if (jm, js) == (tm, ts):
-        assert text["torch"] == text["jax"]
-
-
-_FLOAT = r"[-+0-9.eE]+"
-
-
-def test_is_star_cub_cli_matches_jax(files):
-    """Seeded shuffle, tail drop (12 images at batch 4 and 5: 12 and 10 kept)
-    and the slim backbone: same (mean, std) as the JAX CLI."""
-    for bs in ("4", "5"):
-        text = _run_pair(files, f"cub{bs}", jis_star.main, tis_star.main,
-                         ["--image_folder", files["images"], "--flavor", "cub", "--weights", files["slim"],
-                          "--batch_size", bs, "--splits", "2", "--seed", "1"])
-        paths = [str(files["root"] / f"cub{bs}_{n}.txt") for n in ("jax", "torch")]
-        _assert_results_agree(text, rf"IS = {_FLOAT}  \+-  {_FLOAT}",
-                              (jio.read_is_result(paths[0]), tio.read_is_result(paths[1])))
-
-
-def test_is_star_cub_shuffle_seed_changes_the_kept_images(files):
-    """At batch 5 two of the 12 shuffled images are dropped; which two depends
-    on --seed, so the score does."""
-    values = []
-    for seed in ("1", "2"):
-        saved = str(files["root"] / f"cub_seed{seed}.txt")
-        tis_star.main(["--image_folder", files["images"], "--flavor", "cub", "--weights", files["slim"],
-                       "--batch_size", "5", "--splits", "2", "--seed", seed, "--saved_file", saved, "--device", "cpu"])
-        values.append(tio.read_is_result(saved))
-    assert values[0] != values[1]
-
-
-def test_is_star_coco_cli_matches_jax(files):
-    """No shuffle, every image (12 at batch 5, the tail padded and masked)."""
-    text = _run_pair(files, "coco", jis_star.main, tis_star.main,
-                     ["--image_folder", files["images"], "--flavor", "coco", "--weights", files["g2015"],
-                      "--batch_size", "5", "--splits", "3"])
-    paths = [str(files["root"] / f"coco_{n}.txt") for n in ("jax", "torch")]
-    _assert_results_agree(text, r"\[Inception Score\] mean: \d+\.\d{5} std: \d+\.\d{5}",
-                          (jio.read_is_coco_result(paths[0]), tio.read_is_coco_result(paths[1])))
-
-
-def test_o_is_cli_matches_jax(files):
-    text = _run_pair(files, "o_is", jo_is.main, to_is.main,
-                     ["--image_dir", files["images"], "--weights", files["w80"], "--batch_size", "5"])
-    paths = [str(files["root"] / f"o_is_{n}.txt") for n in ("jax", "torch")]
-    _assert_results_agree(text, rf"O-IS: {_FLOAT} \+-  {_FLOAT}",
-                          (jio.read_o_is_result(paths[0]), tio.read_o_is_result(paths[1])))
-
-
-def test_snapshot_file_gives_the_same_result(files):
-    """--snapshot_file runs the resumable drain: the same bytes, and the
-    snapshot is gone when the run ends."""
-    plain, snap = str(files["root"] / "o_is_plain.txt"), str(files["root"] / "o_is_snap.txt")
-    snapshot = str(files["root"] / "o_is.snapshot.npz")
-    argv = ["--image_dir", files["images"], "--weights", files["w80"], "--batch_size", "5", "--device", "cpu"]
-    to_is.main([*argv, "--saved_file", plain])
-    to_is.main([*argv, "--saved_file", snap, "--snapshot_file", snapshot, "--precision", "fast"])
-    with open(plain) as f, open(snap) as g:
-        assert f.read() == g.read()  # on the CPU "fast" (TF32 in the forward) changes nothing
-    assert not os.path.exists(snapshot)
-
-
-@pytest.mark.parametrize("main,argv", [
-    (tis_star.main, ["--image_folder", "x", "--flavor", "coco", "--weights", "w.npz"]),
-    (to_is.main, ["--image_dir", "x", "--weights", "w.npz"]),
-])
-def test_clis_raise_without_a_card_unless_asked_for_the_cpu(main, argv):
-    with pytest.raises(RuntimeError, match="--device cpu"):
-        main(argv)
-
-
-def test_empty_folder_raises(files, tmp_path):
-    with pytest.raises(RuntimeError, match="No images found"):
-        to_is.main(["--image_dir", str(tmp_path), "--weights", files["w80"], "--device", "cpu"])
-    with pytest.raises(RuntimeError, match="No images found"):
-        tis_star.main(["--image_folder", str(tmp_path), "--flavor", "coco", "--weights", files["g2015"], "--device", "cpu"])
 
 
 # -- result files ----------------------------------------------------------------

@@ -12,6 +12,7 @@ mode) at the sizes its ragged instances see on the card.
 """
 
 import ctypes
+import re
 import subprocess
 import sys
 
@@ -20,12 +21,24 @@ import numpy as np
 import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
+from threadpoolctl import threadpool_limits
 
 from tise_tpu.ops import pallas_kernels as jpallas
 from tise_tpu.ops import sqrtm as jsqrtm
 from tise_tpu.ops import stats as jstats
 from tise_tpu_torch.backbones import inception_fast, inception_v3
-from tise_tpu_torch.ops import native, pallas_kernels, sqrtm, stats
+from tise_tpu_torch.ops import fast_pool, native, pallas_kernels, sqrtm, stats
+from tise_tpu_torch.tools import mosaic_probe
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_cpu_thread():
+    """torch and BLAS on one thread: the suite runs several workers on the same cores."""
+    with threadpool_limits(1):
+        before = torch.get_num_threads()
+        torch.set_num_threads(1)
+        yield
+        torch.set_num_threads(before)
 
 
 def _random_psd(rng, d):
@@ -126,6 +139,101 @@ class TestLaunch:
         assert counter.launches == 2
 
 
+class _FakeCudaTensor:
+    """A CPU tensor that says it lives on card 0 at a made-up address: what
+    a kernel wrapper reads of its tensors, and nothing more."""
+
+    is_cuda = True
+    device = torch.device("cuda", 0)
+
+    def __init__(self, t: torch.Tensor, address: int):
+        self._t, self._address = t, address
+        self.shape, self.dtype = t.shape, t.dtype
+
+    def dim(self):
+        return self._t.dim()
+
+    def numel(self):
+        return self._t.numel()
+
+    def is_contiguous(self):
+        return self._t.is_contiguous()
+
+    def data_ptr(self):
+        return self._address
+
+
+X_AT, OUT_AT = 0x10000, 0x90000
+
+
+@pytest.fixture
+def fake_wrapper_call(fake_cuda, monkeypatch):
+    """Runs a kernel wrapper on a fake CUDA tensor with a stand-in for its C
+    entry; returns the arguments the entry received."""
+
+    def run(wrapper, entry: native.CFunction, t: torch.Tensor, *args):
+        stand_in = _StandIn()
+        monkeypatch.setattr(entry, "call", stand_in)
+        monkeypatch.setattr(torch, "empty_like", lambda x: _FakeCudaTensor(torch.empty(x.shape, dtype=x.dtype), OUT_AT))
+        counter_before = wrapper.launches
+        wrapper(_FakeCudaTensor(t, X_AT), *args)
+        assert wrapper.launches == counter_before + 1 and len(stand_in.calls) == 1
+        return stand_in.calls[0]
+
+    return run
+
+
+def _c_entry(source: str, symbol: str):
+    """(name, is a pointer) of each parameter of ``symbol`` as csrc/``source``
+    declares it."""
+    text = (native.CSRC / source).read_text()
+    params = re.search(rf'extern "C" int {symbol}\(([^)]*)\)', text).group(1)
+    return [(p.split()[-1].lstrip("*"), "*" in p) for p in " ".join(params.split()).split(",")]
+
+
+def _check_order(entry: native.CFunction, source: str, values: dict, got: tuple):
+    """The wrapper's arguments are the C entry's parameters, in its order and
+    with its types: pointers as c_void_p, ints as c_int, the stream last."""
+    params = _c_entry(source, entry.symbol)
+    assert [n for n, _ in params][-1] == "stream" and len(entry.argtypes) == len(params)
+    for (name, pointer), argtype in zip(params, entry.argtypes):
+        assert argtype is (ctypes.c_void_p if pointer else ctypes.c_int), name
+    assert got == tuple(values[name] for name, _ in params)
+
+
+class TestWrappersCallTheirCEntries:
+    @pytest.mark.parametrize("shape,dtype", [
+        ((2, 17, 17, 768), torch.float32), ((2, 35, 35, 32), torch.bfloat16), ((2, 17, 17, 36), torch.bfloat16),
+        ((1, 3, 300, 64), torch.float32), ((2, 1, 5, 8), torch.float32)])
+    @pytest.mark.parametrize("include_pad", [True, False])
+    def test_avg_pool_kernel(self, fake_wrapper_call, shape, dtype, include_pad):
+        """K2's wrapper hands tise_avg_pool3x3_s1_p1 the tensors, the sizes,
+        the dtype code, the count mode and pool_geometry's cut."""
+        got = fake_wrapper_call(fast_pool.avg_pool_kernel, fast_pool._AVG_POOL, torch.zeros(shape, dtype=dtype),
+                                include_pad)
+        g = fast_pool.pool_geometry(shape, dtype)
+        values = dict(x=X_AT, out=OUT_AT, B=shape[0], H=shape[1], W=shape[2], C=shape[3],
+                      dtype=fast_pool._DTYPES[dtype], include_pad=int(include_pad), vec=g.vec, cvb=g.cvb,
+                      chunk_w=g.chunk_w, n_chunks=g.n_chunks, band_h=g.band_h, n_bands=g.n_bands, stream=0xBEEF)
+        _check_order(fast_pool._AVG_POOL, "avg_pool3x3.cu", values, got)
+
+    @pytest.mark.parametrize("shape", [(8, 128, 27), (1, 4, 27), (3, 5, 8)])
+    def test_dma_minor27_kernel(self, fake_wrapper_call, shape):
+        """P2's wrapper hands tise_probe_dma_minor27 the tensors, the rows,
+        their width and the rows of one run."""
+        got = fake_wrapper_call(mosaic_probe.dma_minor27_kernel, mosaic_probe._DMA_MINOR27, torch.zeros(shape))
+        run, _ = mosaic_probe.dma_minor27_runs(shape)
+        values = dict(x=X_AT, out=OUT_AT, rows=shape[0] * shape[1], M=shape[2], run_rows=run, stream=0xBEEF)
+        _check_order(mosaic_probe._DMA_MINOR27, "layout_probes.cu", values, got)
+
+    @pytest.mark.parametrize("shape", [(3, 1, 27), (1, 1, 1025), (2, 3, 9)])
+    def test_dma_minor27_refuses_rows_without_aligned_runs(self, fake_wrapper_call, shape):
+        """Rows whose floats cannot be cut into runs of whole 16-byte words
+        are refused before anything is launched."""
+        with pytest.raises(ValueError, match="16-byte"):
+            fake_wrapper_call(mosaic_probe.dma_minor27_kernel, mosaic_probe._DMA_MINOR27, torch.zeros(shape))
+
+
 def test_nothing_is_built_or_bound_on_import():
     """Importing every module that holds a ctypes kernel loads no library,
     binds no symbol and starts no compiler."""
@@ -134,7 +242,7 @@ def test_nothing_is_built_or_bound_on_import():
         "def refuse(*a, **k): raise AssertionError('a process was started on import')\n"
         "subprocess.Popen = refuse\n"
         "from tise_tpu_torch.ops import native, fast_pool, pallas_kernels\n"
-        "from tise_tpu_torch.tools import mosaic_probe, stem_mm_probe, epilogue_matmul_compare\n"
+        "from tise_tpu_torch.tools import mosaic_probe, stem_mm_probe, epilogue_matmul_compare, kernel_compare\n"
         "assert native._LIBS == {} and native.BUILD_LOG == {}\n"
         "entries = [v for m in (fast_pool, pallas_kernels, mosaic_probe, stem_mm_probe)\n"
         "           for v in vars(m).values() if isinstance(v, native.CFunction)]\n"

@@ -8,11 +8,13 @@ themselves run only on the card (chip_smoke.py holds them against these
 plain versions there).
 """
 
+import chip_smoke
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
+from threadpoolctl import threadpool_limits
 
 from tise_tpu.ops import fast_pool as jfast_pool
 from tise_tpu.ops import pallas_kernels as jpallas
@@ -20,6 +22,16 @@ from tise_tpu.ops import preprocess as jpreprocess
 from tise_tpu.ops import sqrtm as jsqrtm
 from tise_tpu.ops import stats as jstats
 from tise_tpu_torch.ops import fast_pool, pallas_kernels, preprocess, sqrtm, stats
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_cpu_thread():
+    """torch and BLAS on one thread: the suite runs several workers on the same cores."""
+    with threadpool_limits(1):
+        before = torch.get_num_threads()
+        torch.set_num_threads(1)
+        yield
+        torch.set_num_threads(before)
 
 
 def _random_psd(rng, d):
@@ -58,7 +70,9 @@ class TestNormalize:
 
 
 class TestAvgPool:
-    SHAPES = [(2, 17, 17, 8), (3, 35, 35, 5), (2, 1, 5, 4), (2, 5, 1, 4), (1, 1, 1, 3)]
+    # the last four: C not a multiple of 8, a 1-wide and a 1-high map, and a row too wide for one block
+    SHAPES = [(2, 17, 17, 8), (3, 35, 35, 5), (2, 1, 5, 4), (2, 5, 1, 4), (1, 1, 1, 3),
+              (2, 17, 17, 36), (2, 9, 1, 8), (2, 1, 9, 8), (1, 3, 300, 6)]
 
     @pytest.mark.parametrize("include_pad", [True, False])
     @pytest.mark.parametrize("shape", SHAPES)
@@ -73,12 +87,32 @@ class TestAvgPool:
     @pytest.mark.parametrize("shape", SHAPES)
     def test_plain_matches_jax_pallas_kernel(self, shape, include_pad):
         """K2's plain version == the Pallas kernel (interpret mode) at 1e-6:
-        the same separable _edge_inv weights."""
+        the same separable _edge_inv weights.  (XLA:CPU does not keep the
+        kernel's order of adds: up to 1 ulp.)"""
         x = np.random.RandomState(1).randn(*shape).astype(np.float32)
         with pltpu.force_tpu_interpret_mode():
             ref = np.asarray(jfast_pool._pallas_pool(jnp.asarray(x), include_pad))
         got = fast_pool.avg_pool_3x3_s1_p1(torch.from_numpy(x), include_pad).numpy()
         np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
+
+    @pytest.mark.parametrize("include_pad", [True, False])
+    @pytest.mark.parametrize("shape", SHAPES)
+    def test_plain_is_the_pallas_kernels_arithmetic_bit_for_bit(self, shape, include_pad):
+        """K2's plain version == _pool_kernel's expression evaluated by numpy
+        in f32 in its written order, ((x[i-1] + x[i]) + x[i+1]) * inv, with
+        the JAX package's own _edge_inv: bit for bit.  K2 on the card is held
+        to the plain version bit for bit (chip_smoke.py)."""
+        x = np.random.RandomState(2).randn(*shape).astype(np.float32)
+        _, h, w, _ = shape
+        invh = jfast_pool._edge_inv(h, include_pad).reshape(1, h, 1, 1)
+        invw = jfast_pool._edge_inv(w, include_pad).reshape(1, 1, w, 1)
+        xh = np.pad(x, ((0, 0), (1, 1), (0, 0), (0, 0)))
+        sh = ((xh[:, :-2] + xh[:, 1:-1]) + xh[:, 2:]) * invh
+        sw = np.pad(sh, ((0, 0), (0, 0), (1, 1), (0, 0)))
+        ref = ((sw[:, :, :-2] + sw[:, :, 1:-1]) + sw[:, :, 2:]) * invw
+        got = fast_pool.avg_pool_3x3_s1_p1(torch.from_numpy(x), include_pad).numpy()
+        assert ref.dtype == np.float32
+        np.testing.assert_array_equal(got, ref)
 
     @pytest.mark.parametrize("n", [1, 2, 5])
     @pytest.mark.parametrize("include_pad", [True, False])
@@ -91,6 +125,76 @@ class TestAvgPool:
         assert got.dtype == torch.bfloat16
         ref = fast_pool.avg_pool_3x3_s1_p1(x.bfloat16().float(), True).bfloat16()
         assert torch.equal(got, ref)
+
+
+# every shape chip_smoke.py holds K2 to on the card, and ragged ones: C = 36,
+# W = 1, H = 1, W = 300
+GEOMETRY_SHAPES = ([s for s, _ in chip_smoke.POOL_SHAPES] + [s for s, _ in chip_smoke.THIN_POOL_SHAPES]
+                   + chip_smoke.EDGE_POOL_SHAPES + chip_smoke.RAGGED_POOL_SHAPES
+                   + [(2, 9, 1, 36), (2, 1, 300, 64), (3, 300, 3, 40)])
+
+
+class TestPoolGeometry:
+    """ops/fast_pool.py::pool_geometry, the cut the wrapper hands K2's C
+    entry.  The test mirrors the kernel's indexing (csrc/avg_pool3x3.cu): block
+    (slice, chunk + n_chunks * band, image) has threads for columns
+    chunk * chunk_w - 1 ... chunk * chunk_w + chunk_w (the two ends are its
+    halo), writes rows band * band_h ... + band_h and the columns between the
+    ends, and reads rows band * band_h - 1 ... band * band_h + band_h, all
+    clipped to the image."""
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("shape", GEOMETRY_SHAPES)
+    def test_every_output_is_written_once_and_halos_are_the_neighbours(self, shape, dtype):
+        g = fast_pool.pool_geometry(shape, dtype)
+        b, h, w, c = shape
+        full = 4 if dtype == torch.float32 else 8
+        assert g.vec == (full if c % full == 0 else 1)
+        assert g.instance == ("chunked" if g.n_chunks > 1 else "vector" if g.vec > 1 else "scalar")
+        cv = c // g.vec
+        assert g.grid == (-(-cv // g.cvb), g.n_chunks * g.n_bands, b)
+        assert g.threads == (g.chunk_w + 2) * g.cvb <= fast_pool.MAX_THREADS
+        assert g.shared_bytes == 2 * g.threads * g.vec * 4 <= fast_pool.MAX_SHARED
+        assert g.n_chunks == 1 or g.threads <= fast_pool.TARGET_THREADS
+        written = np.zeros((h, w, cv), np.int32)
+        for s in range(g.grid[0]):
+            for y in range(g.grid[1]):
+                chunk, band = y % g.n_chunks, y // g.n_chunks
+                rows = np.arange(band * g.band_h, min(h, (band + 1) * g.band_h))
+                cols = chunk * g.chunk_w - 1 + np.arange(g.chunk_w + 2)
+                chans = s * g.cvb + np.arange(g.cvb)
+                chans = chans[chans < cv]
+                assert len(rows) and len(chans)
+                out_cols = cols[1:-1][cols[1:-1] < w]
+                written[np.ix_(rows, out_cols, chans)] += 1
+                assert len(out_cols)
+                # the band reads its rows and the one above and below it; the run its
+                # columns and one on either side; nothing else
+                read_rows = set(range(rows[0] - 1, rows[-1] + 2)) & set(range(h))
+                assert read_rows == set(rows) | ({rows[0] - 1, rows[-1] + 1} & set(range(h)))
+                read_cols = set(cols) & set(range(w))
+                assert read_cols == set(range(out_cols[0] - 1, out_cols[-1] + 2)) & set(range(w))
+        assert (written == 1).all(), np.argwhere(written != 1)[:5]
+
+    def test_the_smokes_shapes_reach_every_instance(self):
+        seen = {fast_pool.pool_geometry(s, d).instance for s in GEOMETRY_SHAPES for d in (torch.float32, torch.bfloat16)}
+        assert seen == set(fast_pool.KERNEL_INSTANCES)
+
+    def test_unaligned_pointers_take_the_scalar_instance(self):
+        g = fast_pool.pool_geometry((2, 17, 17, 768), torch.float32, aligned=False)
+        assert g.vec == 1 and g.instance == "scalar"
+
+    def test_main_path_pools_fill_the_card(self):
+        """The trunk's and the fast trunk's pools take whole rows and give at
+        least MIN_BLOCKS blocks, or, where a pool is too small for that, cut
+        it as finely as the rule allows: slices of MIN_CVB vectors, bands of
+        MIN_BAND rows."""
+        for shape, _ in chip_smoke.POOL_SHAPES + chip_smoke.THIN_POOL_SHAPES:
+            g = fast_pool.pool_geometry(shape, torch.float32)
+            assert g.instance == "vector" and g.n_chunks == 1 and g.chunk_w == shape[2]
+            if g.grid[0] * g.grid[1] * g.grid[2] < fast_pool.MIN_BLOCKS:
+                assert g.cvb == fast_pool.MIN_CVB and g.band_h == fast_pool.MIN_BAND, (shape, g)
+            assert g.band_h >= min(fast_pool.MIN_BAND, shape[1])
 
 
 class TestEpilogueMatmul:

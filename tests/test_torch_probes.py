@@ -18,11 +18,22 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
+from threadpoolctl import threadpool_limits
 
 import tools.mosaic_probe as jprobe
 import tools.stem_mm_probe as jstem
 from tise_tpu_torch.tools import mosaic_probe as tprobe
 from tise_tpu_torch.tools import stem_mm_probe as tstem
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_cpu_thread():
+    """torch and BLAS on one thread: the suite runs several workers on the same cores."""
+    with threadpool_limits(1):
+        before = torch.get_num_threads()
+        torch.set_num_threads(1)
+        yield
+        torch.set_num_threads(before)
 
 
 def _pallas_on(fn, x: np.ndarray, monkeypatch) -> np.ndarray:
@@ -65,6 +76,45 @@ def test_probe_shapes_are_the_tpu_probes():
     assert {k: v[2] for k, v in tprobe.PROBES.items()} == {
         "lane_split": (44, 900), "dma_minor27": (8, 128, 27), "strided_slice": (8, 256),
         "lane_concat": (128, 128), "scratch_stage": (8, 64)}
+
+
+@pytest.mark.parametrize("shape", [(8, 128, 27), (2, 128, 27), (1, 4, 27), (8, 128, 32), (5, 7, 4), (1, 1, 1024)])
+def test_dma_minor27_runs_cover_the_rows_once_on_16_byte_words(shape):
+    """P2's runs: whole rows, every run but the last of the same length, each
+    starting and ending on a 16-byte word, one thread a float (at most 1024),
+    covering every row once; at the probe's [8, 128, 27] at least 32 blocks."""
+    b, r, m = shape
+    run, blocks = tprobe.dma_minor27_runs(shape)
+    rows = b * r
+    assert run * m % 4 == 0 and run * m <= 1024
+    starts = [k * run for k in range(blocks)]
+    ends = [min(rows, s + run) for s in starts]
+    assert starts[0] == 0 and ends[-1] == rows and all(e > s for s, e in zip(starts, ends))
+    assert all(s * m * 4 % 16 == 0 and e * m * 4 % 16 == 0 for s, e in zip(starts, ends))
+    assert all(ends[k] == starts[k + 1] for k in range(blocks - 1))
+    if shape == (8, 128, 27):
+        assert blocks >= 32
+
+
+@pytest.mark.parametrize("shape", [(3, 1, 27), (1, 1, 1025), (1, 2, 27), (7, 1, 2)])
+def test_dma_minor27_runs_refuse_rows_without_aligned_runs(shape):
+    with pytest.raises(ValueError, match="16-byte"):
+        tprobe.dma_minor27_runs(shape)
+
+
+def test_dma_minor27_plain_names_the_tpu_probes_block(monkeypatch):
+    """TPU_BLOCK is the block the TPU probe's BlockSpec moves."""
+    seen = []
+    real = pl.pallas_call
+
+    def spy(kernel, **kw):
+        seen.append(kw["in_specs"][0].block_shape)
+        return real(kernel, **kw)
+
+    monkeypatch.setattr(jprobe.pl, "pallas_call", spy)
+    with pltpu.force_tpu_interpret_mode():
+        jprobe.dma_minor27()
+    assert [tuple(b) for b in seen] == [tprobe.TPU_BLOCK]
 
 
 def test_mosaic_probe_entry_point_on_the_cpu(capsys):

@@ -46,33 +46,33 @@ lane_split_kernel(const float* __restrict__ x, float* __restrict__ out, int G) {
 }
 
 // ---------------------------------------------------------------------------
-// P2 dma_minor27: x [B, R, M] -> out = 2x, moved in blocks of [BB, R, M]
-// (BB = 2, R = 128, M = 27 in the probe) through shared memory.  A row of 27
-// floats is 108 bytes and is not 16-byte aligned, but a whole block is one
-// contiguous run of BB*R*M floats whose start IS 16-byte aligned when
-// BB*R*M % 4 == 0 (the wrapper checks it), so the block moves between global
-// and shared memory with 16-byte accesses over the flat run; the staging
-// keeps the unpadded [BB*R][M] layout, and the compute step addresses it by
-// (row, column) with 4-byte accesses, as a consumer of 27-wide patch rows
-// would (column stride 27 is coprime with the 32 banks).
+// P2 dma_minor27: x [B, R, M] -> out = 2x (M = 27 in the probe), the rows
+// moved through shared memory in runs.  A row of 27 floats is 108 bytes and
+// never 16-byte aligned, but a run of rows whose length is a multiple of 4
+// floats (4 rows of 27 = 108 floats) starts and ends on 16 bytes.  So each
+// block owns one such run (the wrapper sizes it; for [8,128,27] it makes 128
+// blocks of 8 rows where the old kernel made 4 blocks of 256), moves it into
+// shared memory with 16-byte loads, keeps the unpadded [rows][M] layout
+// there, gives each element its own thread, which addresses it by (row,
+// column) = (i / M, i % M) as a consumer of 27-wide patch rows would
+// (column stride 27 is coprime with the 32 banks), and moves the run out with
+// 16-byte stores: three phases, one barrier between each two.
 // ---------------------------------------------------------------------------
-constexpr int P2_THREADS = 256;
-
-__global__ void __launch_bounds__(P2_THREADS)
-dma_minor27_kernel(const float* __restrict__ x, float* __restrict__ out, int rows, int M) {
-  extern __shared__ __align__(16) float blk_s[];  // [rows][M], rows = BB * R
-  const int n = rows * M;
-  const int64_t base = (int64_t)blockIdx.x * n;
-  const float4* src = reinterpret_cast<const float4*>(x + base);
-  float4* stage = reinterpret_cast<float4*>(blk_s);
-  for (int i = threadIdx.x; i < n / 4; i += P2_THREADS) stage[i] = src[i];
+__global__ void dma_minor27_kernel(const float* __restrict__ x, float* __restrict__ out, int rows, int M,
+                                   int run_rows) {
+  extern __shared__ __align__(16) float run_s[];  // [run_rows][M]
+  const int r0 = blockIdx.x * run_rows;
+  const int n = min(run_rows, rows - r0) * M;  // a multiple of 4 (the wrapper checks it)
+  const int64_t base = (int64_t)r0 * M;
+  const int i = threadIdx.x;
+  if (i < n / 4) reinterpret_cast<float4*>(run_s)[i] = reinterpret_cast<const float4*>(x + base)[i];
   __syncthreads();
-  // one thread per row walks its 27 columns: the (row, column) view of the block
-  for (int row = threadIdx.x; row < rows; row += P2_THREADS)
-    for (int c = 0; c < M; ++c) blk_s[row * M + c] = __fmul_rn(blk_s[row * M + c], 2.0f);
+  if (i < n) {
+    const int row = i / M, col = i % M;
+    run_s[row * M + col] = __fmul_rn(run_s[row * M + col], 2.0f);
+  }
   __syncthreads();
-  float4* dst = reinterpret_cast<float4*>(out + base);
-  for (int i = threadIdx.x; i < n / 4; i += P2_THREADS) dst[i] = stage[i];
+  if (i < n / 4) reinterpret_cast<float4*>(out + base)[i] = reinterpret_cast<const float4*>(run_s)[i];
 }
 
 // ---------------------------------------------------------------------------
@@ -152,11 +152,14 @@ extern "C" int tise_probe_lane_split(const void* x, void* out, int R, int G, voi
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int tise_probe_dma_minor27(const void* x, void* out, int B, int BB, int R, int M, void* stream) {
-  const int n = BB * R * M;
-  if (B % BB != 0 || n % 4 != 0 || n * sizeof(float) > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  dma_minor27_kernel<<<B / BB, P2_THREADS, n * sizeof(float), static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(out), BB * R, M);
+// rows: B * R rows of M floats; run_rows: rows a block moves (run_rows * M a
+// multiple of 4, at most 1024 threads and 48 KB), the last run may be shorter.
+extern "C" int tise_probe_dma_minor27(const void* x, void* out, int rows, int M, int run_rows, void* stream) {
+  const int n = run_rows * M;
+  if (rows < 1 || run_rows < 1 || n % 4 != 0 || ((int64_t)rows * M) % 4 != 0 || n > 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  dma_minor27_kernel<<<(rows + run_rows - 1) / run_rows, n, n * sizeof(float), static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<float*>(out), rows, M, run_rows);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -18,6 +18,8 @@ the kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -25,6 +27,7 @@ import torch
 from tise_tpu_torch.ops import native
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2}
 
 
 def _edge_inv(n: int, include_pad: bool) -> np.ndarray:
@@ -55,7 +58,79 @@ def avg_pool_plain(x: torch.Tensor, count_include_pad: bool = True) -> torch.Ten
 
 _AVG_POOL = native.CFunction(
     "avg_pool3x3", "tise_avg_pool3x3_s1_p1",
-    [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 12 + [ctypes.c_void_p])
+
+#: the instances the wrapper chooses from: 16-byte accesses over whole rows,
+#: one element an access over whole rows, and rows cut into column chunks
+KERNEL_INSTANCES = ("vector", "scalar", "chunked")
+SMS = 132                  # streaming multiprocessors of one H100
+MAX_THREADS = 1024         # threads of one block
+MAX_SHARED = 48 * 1024     # static-limit shared memory of one block: two row buffers of f32
+TARGET_THREADS = 256       # a block's threads, where the row and the channels allow
+MIN_CVB = 8                # channel vectors of a column per block (128 bytes of f32) where C has them
+MIN_BLOCKS = 16 * SMS      # blocks a grid aims at: four waves at four blocks an SM
+MIN_BAND = 4               # rows of a band, at least: each band re-reads two halo rows
+
+
+class PoolGeometry(NamedTuple):
+    """How K2 cuts one pool: what ``tise_avg_pool3x3_s1_p1`` is given, and
+    the grid and block it launches from that."""
+
+    instance: str   # one of KERNEL_INSTANCES
+    vec: int        # channels a thread moves in one access: 16 bytes' worth, or 1
+    cvb: int        # channel vectors of a block's slice
+    chunk_w: int    # output columns of a block (the width, unless chunked)
+    n_chunks: int
+    band_h: int     # output rows of a block
+    n_bands: int
+    grid: Tuple[int, int, int]  # (channel slices, chunks x bands, images)
+    threads: int    # (chunk_w + 2) x cvb: the run's columns and its two halo columns
+    shared_bytes: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _geometry(shape: Sequence[int], itemsize: int, aligned: bool, target_threads: int, min_blocks: int,
+              min_band: int) -> PoolGeometry:
+    b, h, w, c = shape
+    vec = 16 // itemsize if c % (16 // itemsize) == 0 and aligned else 1
+    cv = c // vec
+    max_threads = min(MAX_THREADS, MAX_SHARED // (2 * vec * 4))
+    cvb_min = min(cv, MIN_CVB)
+    if (w + 2) * cvb_min <= max_threads:
+        chunk_w, n_chunks = w, 1
+    else:  # a row does not fit one block: chunks of it, each with a column of halo on either side
+        chunk_w = _cdiv(w, _cdiv(w, target_threads // cvb_min - 2))
+        n_chunks = _cdiv(w, chunk_w)
+    cap = max(cvb_min, min(target_threads, max_threads) // (chunk_w + 2))
+    # the widest slice that divides the channels and still gives min_blocks
+    # with bands of min_band rows; else the narrowest
+    widths = [d for d in range(cap, cvb_min - 1, -1) if cv % d == 0] or [min(cv, cap)]
+    per_image = {d: _cdiv(cv, d) * n_chunks for d in widths}
+    most_bands = _cdiv(h, min_band)
+    cvb = next((d for d in widths if b * per_image[d] * most_bands >= min_blocks), widths[-1])
+    n_bands = max(1, min(most_bands, _cdiv(min_blocks, b * per_image[cvb])))
+    band_h = _cdiv(h, n_bands)
+    n_bands = _cdiv(h, band_h)
+    threads = (chunk_w + 2) * cvb
+    instance = "chunked" if n_chunks > 1 else ("vector" if vec > 1 else "scalar")
+    return PoolGeometry(instance, vec, cvb, chunk_w, n_chunks, band_h, n_bands,
+                        (_cdiv(cv, cvb), n_chunks * n_bands, b), threads, 2 * threads * vec * 4)
+
+
+@functools.lru_cache(maxsize=None)
+def pool_geometry(shape: Tuple[int, int, int, int], dtype: torch.dtype, aligned: bool = True) -> PoolGeometry:
+    """K2's cut of an NHWC pool of ``shape`` and ``dtype`` (``aligned``: both
+    tensors start on 16 bytes).  The vector instance where C is a multiple of
+    the 16-byte vector (4 f32, 8 bf16), else the scalar one; whole rows where
+    the row and its two halo columns fit one block, else column chunks.  The
+    channel slice is the widest divisor of the channel vectors near
+    TARGET_THREADS threads that still gives MIN_BLOCKS blocks, and rows are
+    cut into bands until it does (no band under MIN_BAND rows).  Cached: the
+    wrapper asks for it at every launch."""
+    return _geometry(shape, _ITEMSIZE[dtype], aligned, TARGET_THREADS, MIN_BLOCKS, MIN_BAND)
 
 
 def avg_pool_kernel(x: torch.Tensor, count_include_pad: bool = True) -> torch.Tensor:
@@ -72,8 +147,9 @@ def avg_pool_kernel(x: torch.Tensor, count_include_pad: bool = True) -> torch.Te
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    native.launch(_AVG_POOL, avg_pool_kernel, x.device,
-                  x.data_ptr(), out.data_ptr(), b, h, w, c, _DTYPES[x.dtype], int(count_include_pad))
+    g = pool_geometry(tuple(x.shape), x.dtype, x.data_ptr() % 16 == 0)
+    native.launch(_AVG_POOL, avg_pool_kernel, x.device, x.data_ptr(), out.data_ptr(), b, h, w, c,
+                  _DTYPES[x.dtype], int(count_include_pad), g.vec, g.cvb, g.chunk_w, g.n_chunks, g.band_h, g.n_bands)
     return out
 
 

@@ -8,7 +8,7 @@ kernel computes, at the same shape and type, and is held against a plain
 PyTorch version on seeded random input:
 
   lane_split      [44, 900] -> [44, 300, 3] summed over the triples
-  dma_minor27     x * 2 moved in blocks [2, 128, 27] (minor dimension 27)
+  dma_minor27     x * 2 of [8, 128, 27] moved in runs of whole 27-float rows
   strided_slice   x[:, ::2]
   lane_concat     concat([2x, x.T], axis=1) of a [128, 128] tile
   scratch_stage   two scaled half rows staged through shared-memory scratch
@@ -21,6 +21,7 @@ Usage: python -m tise_tpu_torch.tools.mosaic_probe      (needs one CUDA card)
 from __future__ import annotations
 
 import ctypes
+import math
 import sys
 from typing import Callable, Dict, Tuple
 
@@ -37,7 +38,7 @@ def _entry(name: str, ints: int) -> native.CFunction:
                             [ctypes.c_void_p] * 2 + [ctypes.c_int] * ints + [ctypes.c_void_p])
 
 
-_LANE_SPLIT, _DMA_MINOR27 = _entry("lane_split", 2), _entry("dma_minor27", 4)
+_LANE_SPLIT, _DMA_MINOR27 = _entry("lane_split", 2), _entry("dma_minor27", 3)
 _STRIDED_SLICE, _LANE_CONCAT = _entry("strided_slice", 2), _entry("lane_concat", 1)
 _SCRATCH_STAGE = _entry("scratch_stage", 1)
 
@@ -71,24 +72,38 @@ def lane_split_kernel(x: torch.Tensor) -> torch.Tensor:
 
 # -- P2 ----------------------------------------------------------------------
 
-DMA_BLOCK = 2  # leading-dimension extent of one moved block, as in the TPU probe's BlockSpec
+TPU_BLOCK = (2, 128, 27)  # the TPU probe's BlockSpec: the block its kernel moves
+DMA_RUN_FLOATS = 512      # a run of rows a block moves: at most this many floats, one thread each
 
 
 def dma_minor27_plain(x: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of P2: ``x * 2``."""
+    """Plain PyTorch version of P2: ``x * 2`` (on the TPU, moved in blocks
+    ``TPU_BLOCK`` whose minor dimension is 27)."""
     return x * 2.0
 
 
+def dma_minor27_runs(shape: Tuple[int, int, int]) -> Tuple[int, int]:
+    """(rows a block moves, blocks) of P2 over f32 ``shape`` [B, R, M]: whole
+    rows, as many as DMA_RUN_FLOATS allows, in a multiple of the fewest rows
+    whose floats make whole 16-byte words (4 / gcd(M, 4): 4 rows of 27), so
+    that every run starts 16-byte aligned.  Raises where the rows cannot form
+    such runs."""
+    b, r, m = shape
+    rows, unit = b * r, 4 // math.gcd(m, 4)
+    if rows < 1 or rows % unit != 0 or unit * m > 1024:
+        raise ValueError(f"dma_minor27: the {rows} rows of {m} floats of {tuple(shape)} cannot form runs of "
+                         f"whole 16-byte words ({unit} rows each, at most 1024 floats)")
+    run = min(rows, unit * max(1, DMA_RUN_FLOATS // (unit * m)))
+    return run, -(-rows // run)
+
+
 def dma_minor27_kernel(x: torch.Tensor) -> torch.Tensor:
-    """P2 on a CUDA tensor: f32 [B, R, M], moved in blocks [2, R, M]."""
+    """P2 on a CUDA tensor: f32 [B, R, M], moved in runs of whole rows."""
     _check_input(x, "dma_minor27", 3)
     b, r, m = x.shape
-    n = DMA_BLOCK * r * m
-    if b % DMA_BLOCK != 0 or n % 4 != 0 or n * 4 > 48 * 1024:
-        raise ValueError(f"dma_minor27: blocks [{DMA_BLOCK}, {r}, {m}] must tile {tuple(x.shape)}, "
-                         "hold a multiple of 4 floats and fit 48 KB")
+    run, _ = dma_minor27_runs(x.shape)
     out = torch.empty_like(x)
-    native.launch(_DMA_MINOR27, dma_minor27_kernel, x.device, x.data_ptr(), out.data_ptr(), b, DMA_BLOCK, r, m)
+    native.launch(_DMA_MINOR27, dma_minor27_kernel, x.device, x.data_ptr(), out.data_ptr(), b * r, m, run)
     return out
 
 
