@@ -27,8 +27,8 @@ from tise_tpu.ops import pallas_kernels as jpallas
 from tise_tpu.ops import sqrtm as jsqrtm
 from tise_tpu.ops import stats as jstats
 from tise_tpu_torch.backbones import inception_fast, inception_v3
-from tise_tpu_torch.ops import fast_pool, native, pallas_kernels, sqrtm, stats
-from tise_tpu_torch.tools import mosaic_probe
+from tise_tpu_torch.ops import fast_pool, native, pallas_kernels, preprocess, sqrtm, stats
+from tise_tpu_torch.tools import mosaic_probe, stem_mm_probe
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -184,20 +184,28 @@ def fake_wrapper_call(fake_cuda, monkeypatch):
 
 
 def _c_entry(source: str, symbol: str):
-    """(name, is a pointer) of each parameter of ``symbol`` as csrc/``source``
-    declares it."""
+    """(name, C type) of each parameter of ``symbol`` as csrc/``source``
+    declares it; a pointer's type is "*"."""
     text = (native.CSRC / source).read_text()
     params = re.search(rf'extern "C" int {symbol}\(([^)]*)\)', text).group(1)
-    return [(p.split()[-1].lstrip("*"), "*" in p) for p in " ".join(params.split()).split(",")]
+    out = []
+    for p in " ".join(params.split()).split(","):
+        words = p.split()
+        out.append((words[-1].lstrip("*"), "*" if "*" in p else " ".join(w for w in words[:-1] if w != "const")))
+    return out
+
+
+_CTYPES = {"*": ctypes.c_void_p, "int": ctypes.c_int, "long long": ctypes.c_longlong, "float": ctypes.c_float}
 
 
 def _check_order(entry: native.CFunction, source: str, values: dict, got: tuple):
     """The wrapper's arguments are the C entry's parameters, in its order and
-    with its types: pointers as c_void_p, ints as c_int, the stream last."""
+    with its types (pointers as c_void_p, int, long long and float as their
+    ctypes), the stream last."""
     params = _c_entry(source, entry.symbol)
     assert [n for n, _ in params][-1] == "stream" and len(entry.argtypes) == len(params)
-    for (name, pointer), argtype in zip(params, entry.argtypes):
-        assert argtype is (ctypes.c_void_p if pointer else ctypes.c_int), name
+    for (name, ctype), argtype in zip(params, entry.argtypes):
+        assert argtype is _CTYPES[ctype], name
     assert got == tuple(values[name] for name, _ in params)
 
 
@@ -217,6 +225,49 @@ class TestWrappersCallTheirCEntries:
                       chunk_w=g.chunk_w, n_chunks=g.n_chunks, band_h=g.band_h, n_bands=g.n_bands, stream=0xBEEF)
         _check_order(fast_pool._AVG_POOL, "avg_pool3x3.cu", values, got)
 
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("shape", [(64, 64, 64, 3), (3, 5, 7, 3)])
+    def test_normalize_kernel(self, fake_wrapper_call, monkeypatch, shape, dtype):
+        """K1's wrapper hands tise_normalize the tensors, the element count,
+        normalize_geometry's cut, the dtype code and the recipe's six
+        constants."""
+        monkeypatch.setattr(torch, "empty", lambda s, dtype, device: _FakeCudaTensor(torch.zeros(s, dtype=dtype), OUT_AT))
+        got = fake_wrapper_call(preprocess.normalize_kernel, preprocess._NORMALIZE,
+                                torch.zeros(shape, dtype=torch.uint8), "clip", dtype)
+        g = preprocess.normalize_geometry(torch.Size(shape).numel(), True)
+        s0, s1, s2, b0, b1, b2 = preprocess._kernel_constants("clip", dtype)
+        values = dict(x=X_AT, out=OUT_AT, n=torch.Size(shape).numel(), body_blocks=g.body_blocks, tail=g.tail,
+                      blocks=g.blocks, dtype=preprocess._DTYPE_CODES[dtype], s0=s0, s1=s1, s2=s2, b0=b0, b1=b1, b2=b2,
+                      stream=0xBEEF)
+        _check_order(preprocess._NORMALIZE, "normalize.cu", values, got)
+
+    @pytest.mark.parametrize("return_last", [False, True])
+    @pytest.mark.parametrize("m,k,n", [(2384, 27, 32), (1176, 1152, 128), (130, 45, 24)])
+    def test_stem_mm_kernel(self, fake_cuda, monkeypatch, m, k, n, return_last):
+        """P6's wrapper hands tise_stem_mm the operands, the outputs (no y
+        unless asked), the sizes, stem_geometry's nb and shared-memory bytes
+        and the step count."""
+        stand_in = _StandIn()
+        monkeypatch.setattr(stem_mm_probe._STEM_MM, "call", stand_in)
+        made = []
+
+        def empty(shape, dtype, device):
+            made.append(tuple(shape))
+            return _FakeCudaTensor(torch.zeros(shape, dtype=dtype), OUT_AT + len(made))
+
+        monkeypatch.setattr(torch, "empty", empty)
+        x = _FakeCudaTensor(torch.zeros(m, k, dtype=torch.bfloat16), X_AT)
+        w = _FakeCudaTensor(torch.zeros(k, n, dtype=torch.bfloat16), X_AT + 1)
+        before = stem_mm_probe.stem_mm_kernel.launches
+        stem_mm_probe.stem_mm_kernel(x, w, 7, return_last=return_last)
+        assert stem_mm_probe.stem_mm_kernel.launches == before + 1 and len(stand_in.calls) == 1
+        g = stem_mm_probe.stem_geometry(m, k, n)
+        blocks = g.grid[0] * g.grid[1]
+        assert made == [(1, 1), (blocks * stem_mm_probe.THREADS,)] + ([(m, n)] if return_last else [])
+        values = dict(x=X_AT, w=X_AT + 1, s_out=OUT_AT + 1, sink=OUT_AT + 2, y_out=OUT_AT + 3 if return_last else None,
+                      m=m, k=k, n=n, nb=g.nb, smem_bytes=g.smem_bytes, nsteps=7, stream=0xBEEF)
+        _check_order(stem_mm_probe._STEM_MM, "stem_mm.cu", values, stand_in.calls[0])
+
     @pytest.mark.parametrize("shape", [(8, 128, 27), (1, 4, 27), (3, 5, 8)])
     def test_dma_minor27_kernel(self, fake_wrapper_call, shape):
         """P2's wrapper hands tise_probe_dma_minor27 the tensors, the rows,
@@ -234,6 +285,24 @@ class TestWrappersCallTheirCEntries:
             fake_wrapper_call(mosaic_probe.dma_minor27_kernel, mosaic_probe._DMA_MINOR27, torch.zeros(shape))
 
 
+@pytest.mark.parametrize("source,name,value", [
+    ("normalize.cu", "THREADS", preprocess.THREADS), ("normalize.cu", "WORDS", preprocess.WORDS),
+    ("stem_mm.cu", "ROWS", stem_mm_probe.BLOCK_ROWS), ("stem_mm.cu", "THREADS", stem_mm_probe.THREADS)])
+def test_python_cuts_use_the_sources_block_sizes(source, name, value):
+    """K1's and P6's cuts are computed in Python from the block sizes their
+    C sources are compiled with (the C entries refuse a cut that differs on
+    the card); a drift between the two copies fails here first."""
+    text = (native.CSRC / source).read_text()
+    assert int(re.search(rf"constexpr int {name} = (\d+);", text).group(1)) == value
+
+
+def test_stem_mm_source_has_an_instance_for_every_wgmma_n():
+    """``tise_stem_mm`` launches exactly the wgmma n's stem_geometry may pick."""
+    text = (native.CSRC / "stem_mm.cu").read_text()
+    assert tuple(int(n) for n in re.findall(r"case (\d+): return launch<\1>", text)) == stem_mm_probe.WGMMA_N
+    assert tuple(int(n) for n in re.findall(r"template <> struct Mma<(\d+)>", text)) == stem_mm_probe.WGMMA_N
+
+
 def test_nothing_is_built_or_bound_on_import():
     """Importing every module that holds a ctypes kernel loads no library,
     binds no symbol and starts no compiler."""
@@ -241,10 +310,10 @@ def test_nothing_is_built_or_bound_on_import():
         "import subprocess\n"
         "def refuse(*a, **k): raise AssertionError('a process was started on import')\n"
         "subprocess.Popen = refuse\n"
-        "from tise_tpu_torch.ops import native, fast_pool, pallas_kernels\n"
+        "from tise_tpu_torch.ops import native, fast_pool, pallas_kernels, preprocess\n"
         "from tise_tpu_torch.tools import mosaic_probe, stem_mm_probe, epilogue_matmul_compare, kernel_compare\n"
         "assert native._LIBS == {} and native.BUILD_LOG == {}\n"
-        "entries = [v for m in (fast_pool, pallas_kernels, mosaic_probe, stem_mm_probe)\n"
+        "entries = [v for m in (preprocess, fast_pool, pallas_kernels, mosaic_probe, stem_mm_probe)\n"
         "           for v in vars(m).values() if isinstance(v, native.CFunction)]\n"
         "assert len(entries) == 10, len(entries)\n"
         "assert all(e.call is None for e in entries)\n"

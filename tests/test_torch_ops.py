@@ -61,12 +61,58 @@ class TestNormalize:
     def test_recipes_match_jax_constants(self):
         assert preprocess.RECIPES == jpreprocess.RECIPES
 
-    def test_bf16_plain_matches_jax(self):
-        """bf16: both round the product and the sum to bf16; within 1 bf16 ulp."""
-        u8 = np.random.RandomState(1).randint(0, 256, (2, 4, 4, 3)).astype(np.uint8)
-        ref = np.asarray(jpreprocess.normalize(jnp.asarray(u8), "fid", jnp.bfloat16).astype(jnp.float32))
-        got = preprocess.normalize(torch.from_numpy(u8), "fid", torch.bfloat16).float().numpy()
-        np.testing.assert_allclose(got, ref, rtol=2 ** -7, atol=0)
+    @pytest.mark.parametrize("recipe", sorted(preprocess.RECIPES))
+    def test_bf16_plain_matches_jax(self, recipe):
+        """bf16: both round the product and the sum to bf16, and agree bit for
+        bit on every byte value in every channel."""
+        u8 = (np.arange(256 * 3).reshape(1, 16, 16, 3) % 256).astype(np.uint8)
+        ref = np.asarray(jpreprocess.normalize(jnp.asarray(u8), recipe, jnp.bfloat16).astype(jnp.float32))
+        got = preprocess.normalize(torch.from_numpy(u8), recipe, torch.bfloat16)
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_array_equal(got.float().numpy(), ref)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("recipe", sorted(preprocess.RECIPES))
+    def test_kernel_constants_are_the_plain_versions(self, recipe, dtype):
+        """The six floats K1 takes are the plain version's constants in the
+        output dtype, exactly, and are computed once per (recipe, dtype)."""
+        scale, shift = preprocess._constants(recipe, dtype)
+        got = preprocess._kernel_constants(recipe, dtype)
+        assert got == tuple(scale.float().tolist()) + tuple(shift.float().tolist())
+        assert torch.equal(torch.tensor(got, dtype=torch.float32).to(dtype), torch.cat([scale, shift]))
+        assert preprocess._kernel_constants(recipe, dtype) is got
+
+
+class TestNormalizeGeometry:
+    """ops/preprocess.py::normalize_geometry, the cut K1's C entry takes.  The
+    test mirrors csrc/normalize.cu: body block b, thread t, word i covers
+    elements 4 (b * THREADS * WORDS + i * THREADS + t) + j, j < 4, of channel
+    (t + i * (THREADS % 3) + j) mod 3; tail thread i of the blocks after the
+    body covers element body_blocks * BLOCK_ELEMENTS + i when i < tail."""
+
+    @pytest.mark.parametrize("aligned", [True, False])
+    @pytest.mark.parametrize("n", [3, 48, 48 * 7 + 3, 6144, 6144 * 3, 6144 * 2 + 48, 6144 * 2 + 45, 64 * 64 * 3 * 3,
+                                   299 * 299 * 3])
+    def test_every_element_is_covered_once_with_its_channel(self, n, aligned):
+        g = preprocess.normalize_geometry(n, aligned)
+        t_n, w_n = preprocess.THREADS, preprocess.WORDS
+        assert g.body_blocks == (n // preprocess.BLOCK_ELEMENTS if aligned else 0)
+        assert g.tail == n - g.body_blocks * preprocess.BLOCK_ELEMENTS
+        assert g.blocks == max(1, g.body_blocks + -(-g.tail // t_n))
+        b, i, t, j = np.meshgrid(np.arange(g.body_blocks), np.arange(w_n), np.arange(t_n), np.arange(4), indexing="ij")
+        body = 4 * (b * t_n * w_n + i * t_n + t) + j
+        assert ((t % 3 + i * (t_n % 3) + j) % 3 == body % 3).all()
+        tail_threads = np.arange((g.blocks - g.body_blocks) * t_n)
+        tail = g.body_blocks * preprocess.BLOCK_ELEMENTS + tail_threads[tail_threads < g.tail]
+        covered = np.bincount(np.concatenate([body.ravel(), tail]), minlength=n)
+        assert len(covered) == n and (covered == 1).all()
+
+    def test_main_path_shapes_take_no_tail(self):
+        """A batch of 64 at 299 or 64 pixels is whole blocks but for a tail
+        of less than one block."""
+        for side in (299, 64):
+            g = preprocess.normalize_geometry(64 * side * side * 3, True)
+            assert g.tail < preprocess.BLOCK_ELEMENTS and g.body_blocks >= 128
 
 
 class TestAvgPool:

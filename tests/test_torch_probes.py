@@ -154,7 +154,7 @@ def test_kernel_wrappers_refuse_cpu_tensors(name):
         tprobe.PROBES[name][0](torch.from_numpy(tprobe.probe_input(name)))
 
 
-@pytest.mark.parametrize("m,k,n,nsteps", [(40, 27, 32, 3), (24, 48, 64, 2), (33, 27, 32, 1)])
+@pytest.mark.parametrize("m,k,n,nsteps", [(40, 27, 32, 3), (24, 48, 64, 2), (33, 27, 32, 1), (24, 48, 128, 2)])
 def test_stem_mm_plain_matches_pallas_kernel(m, k, n, nsteps):
     """P6's plain version (f32 products of the bf16 values) against
     _mm_kernel in interpret mode at a small shape and a few steps: the sum of
@@ -172,6 +172,61 @@ def test_stem_mm_plain_matches_pallas_kernel(m, k, n, nsteps):
     assert torch.equal(s, got) and y.shape == (m, n)
     # w is re-rounded through f32 with a term far below its last bit: every step is the same dot
     np.testing.assert_allclose(float(s), nsteps * float((x.float() @ w.float())[0, 0]), rtol=1e-6)
+
+
+# the probe's five shapes, two ragged ones (m not a multiple of 64, k not of 16, n of 8 only) and
+# a ragged one at a k whose steps latency bounds
+GEOMETRY_SHAPES = [(m, k, n) for _, m, k, n in tstem.SHAPES] + [(130, 45, 24), (1000, 700, 48), (200, 20, 64)]
+
+
+@pytest.mark.parametrize("m,k,n", GEOMETRY_SHAPES)
+def test_stem_geometry_covers_y_once_in_one_wave(m, k, n):
+    """P6's cut: block (i, j) owns rows 64i ... 64i + 63 of y (those below m)
+    and columns nb j ... nb j + nb - 1, as csrc/stem_mm.cu indexes them.  Every
+    (row, column) of y is owned once; a block's strip of x and slice of w fit
+    the card's shared memory; nb is a wgmma n (a multiple of 8, at most 256)
+    that the kernel is built for; all blocks run in one wave."""
+    g = tstem.stem_geometry(m, k, n)
+    assert g.nb % 8 == 0 and g.nb <= 256 and g.nb in tstem.WGMMA_N and n % g.nb == 0
+    assert g.kp % 16 == 0 and k <= g.kp < k + 16
+    assert g.smem_bytes == (tstem.BLOCK_ROWS + g.nb) * g.kp * 2 + 16 <= tstem.SMEM_LIMIT
+    assert g.grid == (-(-m // tstem.BLOCK_ROWS), n // g.nb)
+    owned = np.zeros((m, n), np.int32)
+    for i in range(g.grid[0]):
+        for j in range(g.grid[1]):
+            rows = np.arange(i * tstem.BLOCK_ROWS, min(m, (i + 1) * tstem.BLOCK_ROWS))
+            assert len(rows)
+            owned[rows[0]:rows[-1] + 1, j * g.nb:(j + 1) * g.nb] += 1
+    assert (owned == 1).all()
+    assert g.occupancy >= 1 and g.grid[0] * g.grid[1] <= tstem.SMS * g.occupancy
+
+
+@pytest.mark.parametrize("m,k,n", GEOMETRY_SHAPES)
+def test_stem_geometry_takes_the_cheapest_slice(m, k, n):
+    """Beyond LATENCY_KP no other wgmma n that fits moves fewer shared-memory
+    bytes through the busiest SM a step: ceil(blocks / SMS) blocks, each
+    reading its strip and slice (128 kp + 2 nb kp bytes) and rewriting its
+    slice (4 nb kp).  Up to it, where latency sets a step, no narrower n
+    that fits runs in one wave."""
+    g = tstem.stem_geometry(m, k, n)
+    fits = [nb for nb in tstem.WGMMA_N if n % nb == 0 and (tstem.BLOCK_ROWS + nb) * g.kp * 2 + 16 <= tstem.SMEM_LIMIT]
+    assert [o.nb for o in tstem.stem_geometries(m, k, n)] == fits
+    assert g.step_bytes == -(-g.grid[0] * g.grid[1] // tstem.SMS) * g.kp * (128 + 6 * g.nb)
+    for o in tstem.stem_geometries(m, k, n):
+        if g.kp <= tstem.LATENCY_KP:
+            assert o.nb >= g.nb or o.grid[0] * o.grid[1] > tstem.SMS * o.occupancy
+        else:
+            assert g.step_bytes <= -(-o.grid[0] * o.grid[1] // tstem.SMS) * g.kp * (128 + 6 * o.nb)
+    if (m, k, n) == (2384, 27, 32):  # conv1a: the narrowest slice, 152 blocks on 132 SMs, two to some of them
+        assert g.nb == 8 and g.grid == (38, 4)
+
+
+@pytest.mark.parametrize("m,k,n", [(64, 64, 12), (64, 1800, 8)])
+def test_stem_geometry_refuses_what_the_kernel_cannot_take(m, k, n):
+    """n must be a multiple of 8; a k whose 64-row strip and 8-column slice
+    exceed the shared memory of a block is refused before a launch."""
+    with pytest.raises(ValueError, match="shared memory"):
+        tstem.stem_geometry(m, k, n)
 
 
 def test_stem_probe_shapes_are_the_tpu_probes():

@@ -4,11 +4,13 @@ The JAX package ``tise_tpu`` is the reference; this package mirrors its
 module names so each file sits opposite its counterpart
 (``tise_tpu_torch/ops/fast_pool.py`` <-> ``tise_tpu/ops/fast_pool.py``).
 Plain tensor code is PyTorch; each TPU Pallas kernel of the ported slices is
-a kernel written by hand for Hopper (``csrc/*.cu`` built with nvcc at first
-use, or Triton), with a plain PyTorch version beside it that CPU tensors use.
+a kernel written by hand for Hopper in CUDA C++ (``csrc/*.cu``, built with
+nvcc at first use), with a plain PyTorch version beside it that CPU tensors
+use.
 
-Ported so far: the FID slice (``python -m tise_tpu_torch.metrics.fid``) and
-O-FID on the same engine.  This package never imports ``jax`` or
+Ported so far: FID, O-FID, IS* and O-IS (``python -m
+tise_tpu_torch.metrics.{fid,o_fid,is_star,o_is}``) and the two probe entry
+points.  This package never imports ``jax`` or
 ``tise_tpu``.
 """
 

@@ -9,7 +9,7 @@ stale library is never loaded.  Nothing is built when this module is
 imported: the CPU tests import every module, and there is no ``nvcc`` there.
 
 :func:`launch` is the one place a kernel's C entry is called from: every
-``ctypes``-bound wrapper (K2, K3, P1-P6) declares its entry once as a
+``ctypes``-bound wrapper (K1-K3, P1-P6) declares its entry once as a
 module-level :class:`CFunction` and hands it, its launch counter, the
 tensors' device and the arguments to ``launch``.
 """

@@ -8,22 +8,25 @@ uint8, K1 normalizes at that size and the library's antialiased bilinear
 resize brings the batch to the trunk's geometry (close to PIL's, not
 bit-equal: a documented deviation of the reference's fast path).
 
-K1, ``normalize_kernel``, is a Triton kernel that replaces the Pallas
+K1, ``normalize_kernel``, is the CUDA kernel ``csrc/normalize.cu``, launched
+through ``native.launch``; it replaces the Pallas
 ``tise_tpu/ops/preprocess.py::normalize_pallas``.  It is one fused
 elementwise pass: one uint8 read and one f32/bf16 write per element, with no
 reuse, so it is bound by device-memory bandwidth (5 bytes per element in f32,
-against 13 for the plain version's three passes: cast, multiply, add).  The
-design does nothing but stream: 4096 elements per program, the channel of an
-element is its flat index mod 3, and the per-channel constants are
-scalar arguments.  The output is NHWC contiguous, which the trunk takes as an
-NCHW ``channels_last`` view without a copy.
+against 13 for the plain version's three passes: cast, multiply, add).  Each
+thread takes 12 words of 4 bytes (16 pixels) at a stride that keeps every warp
+access coalesced and every byte's channel known when the kernel is compiled,
+up to one rotation a thread; the per-channel constants are six float
+arguments, computed once per (recipe, dtype).  The output is bit-equal to the plain
+version, NHWC contiguous, which the trunk takes as an NCHW ``channels_last``
+view without a copy.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
-import os
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -64,9 +67,6 @@ RECIPES: dict[str, Tuple[Tuple[float, ...], Tuple[float, ...]]] = {
     "unit": ((1 / 255.0,) * 3, (0.0,) * 3),
 }
 
-_DTYPES = (torch.float32, torch.bfloat16)
-
-
 def _constants(recipe: str, dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
     """Python float64 constants cast to the output dtype, as the JAX
     ``jnp.asarray(scale, dtype)`` does."""
@@ -80,30 +80,41 @@ def normalize_plain(images_u8: torch.Tensor, recipe: str, dtype: torch.dtype = t
     return images_u8.to(dtype) * scale.to(images_u8.device) + shift.to(images_u8.device)
 
 
+_NORMALIZE = native.CFunction(
+    "normalize", "tise_normalize",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    + [ctypes.c_float] * 6 + [ctypes.c_void_p])
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: threads of a K1 block, and 4-byte words of input each thread of the body takes (16 pixels);
+#: csrc/normalize.cu refuses a cut that does not cover n with its own block
+THREADS, WORDS = 128, 12
+BLOCK_ELEMENTS = THREADS * WORDS * 4
+
+
 @functools.lru_cache(maxsize=None)
-def _triton_kernel():
-    os.environ.setdefault("TRITON_CACHE_DIR", str(native.BUILD_DIR / "triton"))
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def normalize_kernel(x_ptr, out_ptr, n, s0, s1, s2, b0, b1, b2,
-                         BLOCK: tl.constexpr, ROUND_BF16: tl.constexpr):
-        offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
-        mask = offs < n
-        x = tl.load(x_ptr + offs, mask=mask, other=0).to(tl.float32)
-        c = offs % 3
-        s = tl.where(c == 0, s0, tl.where(c == 1, s1, s2))
-        b = tl.where(c == 0, b0, tl.where(c == 1, b1, b2))
-        p = x * s
-        if ROUND_BF16:  # the bf16 product is rounded before the add, as in torch
-            p = p.to(tl.bfloat16).to(tl.float32)
-        tl.store(out_ptr + offs, (p + b).to(out_ptr.dtype.element_ty), mask=mask)
-
-    return normalize_kernel
+def _kernel_constants(recipe: str, dtype: torch.dtype) -> Tuple[float, ...]:
+    """(s0, s1, s2, b0, b1, b2): the plain version's constants in ``dtype``,
+    as the Python floats K1 takes (exact: f32 and bf16 values are floats)."""
+    scale, shift = _constants(recipe, dtype)
+    return tuple(scale.float().tolist()) + tuple(shift.float().tolist())
 
 
-_BLOCK = 4096
+class NormalizeGeometry(NamedTuple):
+    """How K1 covers n elements: ``body_blocks`` blocks of BLOCK_ELEMENTS
+    from the start, then ``tail`` elements one a thread, in ``blocks``
+    blocks of THREADS."""
+
+    body_blocks: int
+    tail: int
+    blocks: int
+
+
+def normalize_geometry(n: int, aligned: bool) -> NormalizeGeometry:
+    """The body reads 4-byte words, so it needs 4-byte aligned input; else
+    every element is tail."""
+    body = n // BLOCK_ELEMENTS if aligned else 0
+    tail = n - body * BLOCK_ELEMENTS
+    return NormalizeGeometry(body, tail, max(1, body + -(-tail // THREADS)))
 
 
 def normalize_kernel(images_u8: torch.Tensor, recipe: str, dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -114,23 +125,17 @@ def normalize_kernel(images_u8: torch.Tensor, recipe: str, dtype: torch.dtype = 
         raise ValueError(f"expected uint8 [B, H, W, 3], got {images_u8.dtype} {tuple(images_u8.shape)}")
     if not images_u8.is_contiguous():
         raise ValueError("normalize_kernel takes a contiguous NHWC tensor")
-    if dtype not in _DTYPES:
+    if dtype not in _DTYPE_CODES:
         raise ValueError(f"unsupported output dtype {dtype}")
-    scale, shift = (t.to(torch.float32).tolist() for t in _constants(recipe, dtype))
+    constants = _kernel_constants(recipe, dtype)
     out = torch.empty(images_u8.shape, dtype=dtype, device=images_u8.device)
     n = images_u8.numel()
     if n == 0:
         return out
-    kernel = _triton_kernel()
-    with torch.cuda.device(images_u8.device):
-        # enable_fp_fusion=False: the product and the sum round separately,
-        # as the plain version's two operations do
-        kernel[(-(-n // _BLOCK),)](
-            images_u8, out, n, *scale, *shift,
-            BLOCK=_BLOCK, ROUND_BF16=dtype == torch.bfloat16,
-            num_warps=8, enable_fp_fusion=False,
-        )
-    normalize_kernel.launches += 1
+    x = images_u8.data_ptr()
+    g = normalize_geometry(n, x % 4 == 0)
+    native.launch(_NORMALIZE, normalize_kernel, images_u8.device, x, out.data_ptr(), n, g.body_blocks, g.tail,
+                  g.blocks, _DTYPE_CODES[dtype], *constants)
     return out
 
 
