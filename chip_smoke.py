@@ -8,7 +8,8 @@ It builds the port's hand-written kernels from the sources in this checkout
 each of the nine kernels against its plain PyTorch version on the card at the
 shapes the main paths give it, then drives every main path through the entry
 point a user would call, at the full width of InceptionV3 at 299 x 299 with
-seeded random weights (BatchNorm statistics calibrated on seeded images):
+seeded random weights (BatchNorm statistics calibrated on seeded images) and
+of CLIP ViT-B/32 at 224 x 224:
 
   * FID (``metrics.fid.main``) on two seeded folders of 20,480 PNGs with
     ``--sqrtm ns-pallas``, again from the two folders' statistics with
@@ -20,14 +21,24 @@ seeded random weights (BatchNorm statistics calibrated on seeded images):
     classes) and O-IS (80-class head), each held against the same logits
     scored on the host with numpy; IS* CUB once more with ``--precision
     fast`` (TF32 inside the forward only), held against the ``highest`` run;
-  * the two probe entry points (``tools.mosaic_probe``, ``tools.stem_mm_probe``).
+  * the two probe entry points (``tools.mosaic_probe``, ``tools.stem_mm_probe``);
+  * RP-COCO (``metrics.rp_coco.main``) and PA (``metrics.pa.main``) at the
+    full width of CLIP ViT-B/32 with seeded random weights, a merge table the
+    script writes and synthetic captions: RP on 2,048 items of 100 captions
+    with the text bank in ``--precision highest`` and ``fast``, and on the
+    first 256 with ``--no-dedup-text`` (the same success bits); PA on 4
+    phrases x 256 items, held to the PA recomputed on the host from the same
+    logits; then the scorers themselves (fast against highest, the bank
+    against the direct path, the card's logits against the CPU's).
 
 Launch counters, set to 0 before each path and read after it, show that each
 path ran its kernels.  K1 is held to its plain version bit for bit in every
-recipe, f32 and bf16, at both main-path shapes, a ragged size and an
-unaligned view; at the two main-path shapes it prints its time by events, by
-the host's clock and on the device (a reading it requires) beside its bytes
-bound and its library call, ``torch.addcmul``.  K2 is held to its
+recipe, f32 and bf16, at the three main-path shapes (299, 64 and CLIP's 224
+px), a ragged size and an unaligned view; at those shapes (CLIP's in f32 and
+bf16) it prints its time by events, by the host's clock and on the device (a
+reading it requires) beside its bytes bound and its library call,
+``torch.addcmul``.  The launch floor, the device time of P3's kernel on an
+f32 [1, 2] input, is printed beside K1's and the probes' device times.  K2 is held to its
 plain version bit for bit at every shape of the main paths, at 1-wide edge
 shapes and at ragged ones, which between them reach each of its instances;
 each trunk and thin shape prints its time against its bytes bound.  For the five layout probes and their
@@ -46,6 +57,7 @@ under build/chip_smoke/ and are removed at the end.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
@@ -59,13 +71,15 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from tise_tpu_torch.backbones import inception_slim
+from tise_tpu_torch.backbones import clip_vit, inception_slim
+from tise_tpu_torch.backbones.clip_tokenizer import SimpleTokenizer
 from tise_tpu_torch.backbones.inception_v3 import BasicConv2d, InceptionV3, random_state_dict
 from tise_tpu_torch.core import io as result_io
 from tise_tpu_torch.core.config import (IS_STAR_TEMPERATURE_COCO, IS_STAR_TEMPERATURE_CUB, NUM_SPLITS,
-                                        O_IS_TEMPERATURE, configure_precision)
-from tise_tpu_torch.core.data import ImageFolderLoader, list_images
-from tise_tpu_torch.metrics import fid, is_star, o_fid, o_is
+                                        O_IS_TEMPERATURE, PA_SUCCESS_THRESHOLD, configure_precision)
+from tise_tpu_torch.core.data import BICUBIC, ImageFolderLoader, center_crop_resize, list_images
+from tise_tpu_torch.metrics import fid, is_star, o_fid, o_is, pa, rp_coco
+from tise_tpu_torch.metrics.clip_scorer import ClipPairScorer
 from tise_tpu_torch.ops import fast_pool, native, sqrtm, stats
 from tise_tpu_torch.ops.fast_pool import avg_pool_kernel, avg_pool_plain
 from tise_tpu_torch.ops.pallas_kernels import (KERNEL_INSTANCES, epilogue_matmul_instance, epilogue_matmul_kernel,
@@ -87,6 +101,7 @@ N_CUB = 2600       # IS* CUB: shuffled, then the tail beyond 40 batches of 64 is
 N_CROPS = 256      # O-FID and O-IS
 BATCH = 64
 NATIVE = 64        # side of the PNGs on disk
+CLIP_SIZE = 224    # CLIP's input side
 EDGE_POOL_SHAPES = [(2, 1, 1, 2048), (2, 1, 5, 8), (2, 5, 1, 8)]
 # C not a multiple of 8 (bf16 scalar instance), C not a multiple of 4 (f32 scalar), rows cut into column chunks
 RAGGED_POOL_SHAPES = [(2, 17, 17, 36), (2, 6, 300, 30), (2, 5, 300, 64)]
@@ -183,30 +198,42 @@ def setup() -> str:
 
 
 def normalize_inputs(gen: torch.Generator) -> dict:
-    """K1's inputs: the two main-path shapes (a batch at 299 and the
-    device-resize path's native 64 x 64), a ragged size (n not a multiple of
-    48 or of a block's 6,144 elements) and an unaligned view of it."""
+    """K1's inputs: the three main-path shapes (a batch at 299, the
+    device-resize path's native 64 x 64 and CLIP's 224 x 224), a ragged size
+    (n not a multiple of 48 or of a block's 6,144 elements) and an unaligned
+    view of it."""
     u8 = torch.randint(0, 256, (BATCH, 299, 299, 3), generator=gen, device="cuda", dtype=torch.uint8)
     ragged = (2, 37, 61, 3)
     flat = torch.randint(0, 256, (torch.Size(ragged).numel() + 1,), generator=gen, device="cuda", dtype=torch.uint8)
     return {"299 px": u8, f"{NATIVE} px": u8[:, :NATIVE, :NATIVE].contiguous(),
+            f"{CLIP_SIZE} px": u8[:, :CLIP_SIZE, :CLIP_SIZE].contiguous(),
             "ragged": flat[:-1].view(ragged), "unaligned": flat[1:].view(ragged)}
 
 
-def normalize_library_call(recipe: str = "fid"):
-    """The one PyTorch call that computes K1's function in f32:
+def normalize_library_call(recipe: str = "fid", dtype: torch.dtype = torch.float32):
+    """The one PyTorch call that computes K1's function in ``dtype``:
     ``torch.addcmul(shift, x, scale)`` promotes the uint8 input and
     broadcasts the three channels' constants over the last dimension.  It
     fuses the multiply and the add, so it agrees with K1 to an ulp, not bit
     for bit.  Timed here only; the port never calls it."""
-    scale, shift = (torch.tensor(c, dtype=torch.float32, device="cuda") for c in RECIPES[recipe])
+    scale, shift = (torch.tensor(c, dtype=dtype, device="cuda") for c in RECIPES[recipe])
     return lambda x: torch.addcmul(shift, x, scale)
+
+
+#: K1's timed cases: (input label, recipe, output dtype)
+NORMALIZE_TIMED = [("299 px", "fid", torch.float32), (f"{NATIVE} px", "fid", torch.float32),
+                   (f"{CLIP_SIZE} px", "clip", torch.float32), (f"{CLIP_SIZE} px", "clip", torch.bfloat16)]
+
+
+def normalize_bytes(x: torch.Tensor, dtype: torch.dtype) -> int:
+    """One uint8 read and one output write per element."""
+    return x.numel() * (1 + torch.empty((), dtype=dtype).element_size())
 
 
 def check_normalize(gen: torch.Generator) -> dict:
     """K1 bit for bit (``torch.equal``) against its plain version in every
-    recipe, f32 and bf16, on normalize_inputs; then, at the two main-path
-    shapes in f32, its time by events and the host's time a call beside the
+    recipe, f32 and bf16, on normalize_inputs; then, in each case of
+    NORMALIZE_TIMED, its time by events and the host's time a call beside the
     bytes bound and its library call (its device time:
     normalize_device_times)."""
     xs = normalize_inputs(gen)
@@ -224,23 +251,25 @@ def check_normalize(gen: torch.Generator) -> dict:
                     max_err = max(max_err, err)
         log(f"[K1 normalize] {label} {list(x.shape)}: torch.equal to the plain version in all {len(RECIPES)} recipes, "
             f"f32 and bf16")
-    library = normalize_library_call()
     out = {}
-    for label in ("299 px", f"{NATIVE} px"):
-        x = xs[label]
-        lib_err = float((library(x) - normalize_plain(x, "fid")).abs().max())
-        # one rounding where the plain version has two: within an ulp of values of magnitude up to 2
-        require(lib_err <= 2.4e-7, f"torch.addcmul differs from K1's plain version by {lib_err} at {label}")
-        ms = median_ms(lambda: normalize_kernel(x, "fid"))
-        plain_ms = median_ms(lambda: normalize_plain(x, "fid"))
+    for label, recipe, dtype in NORMALIZE_TIMED:
+        x, library = xs[label], normalize_library_call(recipe, dtype)
+        ref = normalize_plain(x, recipe, dtype).float()
+        lib_err = float((library(x).float() - ref).abs().max())
+        # each rounds the product v*scale and the sum at most once: half an ulp of each, eps * |value| bounds an ulp
+        tol = torch.finfo(dtype).eps * (255 * max(map(abs, RECIPES[recipe][0])) + float(ref.abs().max()))
+        require(lib_err <= tol, f"torch.addcmul differs from K1's plain version by {lib_err} > {tol} at {label} {dtype}")
+        ms = median_ms(lambda: normalize_kernel(x, recipe, dtype))
+        plain_ms = median_ms(lambda: normalize_plain(x, recipe, dtype))
         library_ms = median_ms(lambda: library(x))
-        enqueue, drained = host_us(lambda: normalize_kernel(x, "fid"))
+        enqueue, drained = host_us(lambda: normalize_kernel(x, recipe, dtype))
         lib_enqueue, _ = host_us(lambda: library(x))
-        least = bound(x.numel() * 5)  # one uint8 read and one f32 write per element
-        log(f"[K1 normalize] fid f32 {list(x.shape)}: events {ms:.4f} ms, host {enqueue:.2f} us a call "
+        nbytes = normalize_bytes(x, dtype)
+        least = bound(nbytes)
+        log(f"[K1 normalize] {recipe} {str(dtype)[6:]} {list(x.shape)}: events {ms:.4f} ms, host {enqueue:.2f} us a call "
             f"({drained:.2f} us with the queue drained), plain {plain_ms:.4f} ms, torch.addcmul {library_ms:.4f} ms "
             f"(host {lib_enqueue:.2f} us a call, max_abs_err {lib_err:.3e} to plain); bound {least['bound_ms']:.5f} ms "
-            f"({x.numel() * 5 / 1e6:.2f} MB)")
+            f"({nbytes / 1e6:.2f} MB)")
         if label == "299 px":
             out = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **least}
     return out
@@ -393,34 +422,50 @@ def pool_device_times(gen: torch.Generator) -> None:
             f"{against(device_us(lambda: [avg_pool_kernel(x, True) for x in xs], calls=5), least)}")
 
 
-def normalize_device_times(gen: torch.Generator) -> None:
-    """K1's duration on the device from torch.profiler at the two main-path
-    shapes in f32, against their bytes bounds, beside its library call's.
-    K1's readings are required: a profiler that records none fails the run.
-    Run last, with probe_device_times."""
-    xs, library = normalize_inputs(gen), normalize_library_call()
-    for label in ("299 px", f"{NATIVE} px"):
-        x = xs[label]
-        us = device_us(lambda: normalize_kernel(x, "fid"))
+def normalize_device_times(gen: torch.Generator, floor_us: float) -> None:
+    """K1's duration on the device from torch.profiler in each case of
+    NORMALIZE_TIMED, against its bytes bound and in launch floors, beside its
+    library call's.  K1's readings are required: a profiler that records none
+    fails the run.  Run last, with probe_device_times."""
+    xs = normalize_inputs(gen)
+    for label, recipe, dtype in NORMALIZE_TIMED:
+        x, library = xs[label], normalize_library_call(recipe, dtype)
+        us = device_us(lambda: normalize_kernel(x, recipe, dtype))
         require(us is not None, f"torch.profiler recorded no K1 kernel at {label} in {PROFILE_TRIES} profiled runs")
         lib_us = device_us(lambda: library(x))
-        log(f"[K1 normalize] fid f32 {list(x.shape)} on the device (torch.profiler): "
-            f"{against(us, bound(x.numel() * 5)['bound_ms'])}; torch.addcmul "
-            f"{'not measured' if lib_us is None else f'{lib_us / 1e3:.5f} ms'}")
+        log(f"[K1 normalize] {recipe} {str(dtype)[6:]} {list(x.shape)} on the device (torch.profiler): "
+            f"{against(us, bound(normalize_bytes(x, dtype))['bound_ms'])}, {us / floor_us:.2f} launch floors; "
+            f"torch.addcmul {'not measured' if lib_us is None else f'{lib_us / 1e3:.5f} ms'}")
 
 
-def probe_device_times() -> None:
+def launch_floor() -> float:
+    """The device time of the smallest launch the port can make: P3's kernel
+    on an f32 [1, 2] input, one block and one element (torch.profiler).
+    Required."""
+    x = torch.randn(1, 2, device="cuda")
+    got = mosaic_probe.strided_slice_kernel(x)
+    require(torch.equal(got, mosaic_probe.strided_slice_plain(x)), "P3 on [1, 2] disagrees with its plain version")
+    us = device_us(lambda: mosaic_probe.strided_slice_kernel(x))
+    require(us is not None, f"torch.profiler recorded no kernel for the launch floor in {PROFILE_TRIES} profiled runs")
+    log(f"[launch floor] P3 strided_slice on f32 [1, 2] (one block, one element) on the device (torch.profiler): "
+        f"{us:.3f} us")
+    return us
+
+
+def probe_device_times(floor_us: float) -> None:
     """The duration on the device of each probe kernel and of its library
-    call, from torch.profiler.  Run last: nothing timed by events or by the
-    host's clock comes after the profiler has been on."""
+    call, from torch.profiler, and the kernel's in launch floors.  Run last:
+    nothing timed by events or by the host's clock comes after the profiler
+    has been on."""
     library = probe_library_calls()
     for name, (kernel, *_) in mosaic_probe.PROBES.items():
         x = torch.from_numpy(mosaic_probe.probe_input(name, seed=1)).cuda()
         times = [("kernel", device_us(lambda: kernel(x)))]
         if name in library:
             times.append(("library call", device_us(lambda: library[name](x))))
+        floors = "" if times[0][1] is None else f" ({times[0][1] / floor_us:.2f} launch floors of {floor_us:.3f} us)"
         log(f"[probe {name}] on the device (torch.profiler): " + ", ".join(
-            f"{label} {'not measured' if t is None else f'{t:.2f} us'}" for label, t in times))
+            f"{label} {'not measured' if t is None else f'{t:.2f} us'}" for label, t in times) + floors)
 
 
 def p5_call_breakdown(row_call) -> None:
@@ -933,6 +978,292 @@ def path_probes() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 5. the CLIP paths: RP-COCO and PA at the full width of ViT-B/32
+# ---------------------------------------------------------------------------
+
+N_RP = 2048          # RP-COCO items: an image, its caption and 99 mismatched ones
+N_POOL = 4096        # synthetic captions the items draw from
+N_NO_DEDUP = 256     # the first RP items, again with --no-dedup-text
+N_PA = 256           # PA items a phrase
+PA_PHRASES = {"left": ("on the left of", "on the right of"), "right": ("on the right of", "on the left of"),
+              "above": ("above", "below"), "below": ("below", "above")}
+_SIZES, _COLOURS = ("small", "big", "tiny", "large"), ("red", "blue", "green", "black", "white", "brown", "grey", "pink")
+_NOUNS = ("cat", "dog", "man", "woman", "car", "tree", "bird", "table", "horse", "boat", "plate", "clock")
+_VERBS, _PREPS = ("sits", "stands", "lies", "waits", "sleeps", "plays"), ("on", "near", "under", "behind", "beside", "by")
+
+
+def write_merge_table(path: str, words) -> str:
+    """A BPE merge table that builds each word left to right into one token
+    (the real table, bpe_simple_vocab_16e6.txt.gz, is not in the repository)."""
+    merges, seen = ["#version: 0.2"], set()
+    for word in words:
+        parts = list(word[:-1]) + [word[-1] + "</w>"]
+        while len(parts) > 1:
+            if (parts[0], parts[1]) not in seen:
+                seen.add((parts[0], parts[1]))
+                merges.append(f"{parts[0]} {parts[1]}")
+            parts = [parts[0] + parts[1]] + parts[2:]
+    with open(path, "w") as f:
+        f.write("\n".join(merges) + "\n")
+    return path
+
+
+def clip_image(i: int) -> np.ndarray:
+    """Seeded image i: 320 x 256 (even i) or 256 x 320, cells of 16 pixels
+    with noise, so that the bicubic shorter-side resize and the crop both act."""
+    rng = np.random.RandomState(1000 + i)
+    h, w = (320, 256) if i % 2 == 0 else (256, 320)
+    cells = np.kron(rng.randint(0, 224, (h // 16, w // 16, 3)), np.ones((16, 16, 1)))
+    return (cells + rng.randint(0, 32, (h, w, 3))).astype(np.uint8)
+
+
+def make_clip_data() -> dict:
+    """The RP and PA inputs: 2,048 seeded PNGs, a merge table, a pool of
+    4,096 synthetic captions, an RP pickle (each item's caption and 99
+    mismatched ones drawn from the pool), its first 256 items, a PA pickle of
+    4 phrases x 256 items on the first 1,024 images (hard links; each false
+    caption swaps the positional words), and full-width ViT-B/32 weights from
+    ``random_state_dict`` as ``.npz``."""
+    from PIL import Image
+
+    t0 = time.perf_counter()
+    root = os.path.join(SCRATCH, "clip")
+    images = os.path.join(root, "images")
+    os.makedirs(images)
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda i: Image.fromarray(clip_image(i)).save(os.path.join(images, f"{i}.png")), range(N_RP)))
+    rng = np.random.RandomState(31)
+    pick = lambda words: words[rng.randint(len(words))]  # noqa: E731
+    captions = set()
+    while len(captions) < N_POOL:
+        captions.add(f"a {pick(_SIZES)} {pick(_COLOURS)} {pick(_NOUNS)} {pick(_VERBS)} {pick(_PREPS)} "
+                     f"a {pick(_COLOURS)} {pick(_NOUNS)}")
+    captions = sorted(captions)
+    items = []
+    for i in range(N_RP):
+        gt = rng.randint(N_POOL)
+        others = rng.randint(N_POOL - 1, size=99)
+        others += others >= gt  # any caption but the item's own
+        items.append({"caption_id": i, "caption": captions[gt], "mismatched_captions": [captions[j] for j in others]})
+    pa_data = {}
+    for p, (phrase, (pos, swapped)) in enumerate(PA_PHRASES.items()):
+        os.makedirs(os.path.join(images, phrase))
+        pa_data[phrase] = []
+        for j in range(N_PA):
+            os.link(os.path.join(images, f"{p * N_PA + j}.png"), os.path.join(images, phrase, f"{j}.png"))
+            a, b = f"a {pick(_COLOURS)} {pick(_NOUNS)}", f"a {pick(_COLOURS)} {pick(_NOUNS)}"
+            pa_data[phrase].append({"caption_id": j, "caption": f"{a} {pos} {b}", "false_caption": f"{a} {swapped} {b}"})
+    words = sorted({w for text in captions + [c for v in pa_data.values() for it in v for c in it.values()
+                                              if isinstance(c, str)] for w in text.split()})
+    d = {"images": images, "bpe": write_merge_table(os.path.join(root, "bpe.txt"), words),
+         "rp": os.path.join(root, "rp.pkl"), "rp_head": os.path.join(root, "rp_head.pkl"),
+         "pa": os.path.join(root, "pa.pkl"), "weights": os.path.join(root, "clip.npz"), "items": items,
+         "pa_data": pa_data, "captions": captions}
+    result_io.save_pickle(d["rp"], items)
+    result_io.save_pickle(d["rp_head"], items[:N_NO_DEDUP])
+    result_io.save_pickle(d["pa"], pa_data)
+    d["state_dict"] = clip_vit.random_state_dict(seed=0)
+    # the released checkpoints' logit scale (training clamps it at 100) in place of the init's 1/0.07: a PA
+    # decision needs a logit gap of log 1.5, which random towers reach at this scale for about a third of the items
+    d["state_dict"]["logit_scale"] = np.asarray(np.log(100.0), np.float32)
+    np.savez(d["weights"], **d["state_dict"])
+    log(f"[clip data] {N_RP} PNGs (320x256 and 256x320), {N_POOL} captions over {len(words)} words, "
+        f"{N_RP} RP items, {len(PA_PHRASES)} x {N_PA} PA items, ViT-B/32 weights in {time.perf_counter() - t0:.1f} s")
+    return d
+
+
+@contextlib.contextmanager
+def recording(owner, name: str):
+    """Wrap ``owner.<name>`` for the block; yields the list of what it returned."""
+    fn, seen = getattr(owner, name), []
+
+    def wrapper(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        seen.append(out)
+        return out
+
+    setattr(owner, name, wrapper)
+    try:
+        yield seen
+    finally:
+        setattr(owner, name, fn)
+
+
+def path_rp(c: dict) -> dict:
+    """RP-COCO through ``rp_coco.main``: ``--precision highest`` on all items
+    (the text bank), ``--no-dedup-text`` on the first 256 (whose success bits
+    must equal the bank run's), ``--precision fast`` on all items.  K1 runs
+    once per image batch in each; every mean is held to its success bits."""
+    common = ["--image_dir", c["images"], "--weights", c["weights"], "--bpe_path", c["bpe"],
+              "--batch_size", str(BATCH)]
+    total, success = {}, {}
+    for tag, pickle_path, n, extra in (("highest", c["rp"], N_RP, []),
+                                       ("no-dedup", c["rp_head"], N_NO_DEDUP, ["--no-dedup-text"]),
+                                       ("fast", c["rp"], N_RP, ["--precision", "fast"])):
+        saved = os.path.join(SCRATCH, f"rp_{tag}.txt")
+        reset_counters()
+        with recording(rp_coco, "score_items") as got:
+            t0 = time.perf_counter()
+            rp_coco.main([*common, "--rp_input_file", pickle_path, "--saved_file_path", saved, *extra])
+            torch.cuda.synchronize()
+            t_cli = time.perf_counter() - t0
+        launches = counts()
+        with open(saved) as f:
+            require(f.read().startswith("R-precision: "), "RP result file format")
+        mean, std = result_io.read_rp_coco_result(saved)
+        success[tag] = got[0]
+        bins = [float(np.mean(success[tag][b])) for b in rp_coco.make_bins(n, NUM_SPLITS, 0)]
+        log(f"[rp {tag}] CLI {t_cli:.2f} s ({n / t_cli:.1f} items/s = images/s end to end); R-precision {mean!r} +- "
+            f"{std!r}; {int(success[tag].sum())} of {n} items succeed; launches {launches}")
+        require(success[tag].shape == (n,) and np.isfinite(mean) and np.isfinite(std), f"RP {tag}: {mean}, {std}")
+        require(mean == float(np.mean(bins)) and std == float(np.std(bins)), f"RP {tag}: result vs its success bits")
+        require(launches["normalize"] == -(-n // BATCH), f"RP {tag}: K1 launched once per image batch")
+        require(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
+                f"RP {tag} left TF32 off")
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+    require(np.array_equal(success["no-dedup"], success["highest"][:N_NO_DEDUP]),
+            "RP --no-dedup-text success bits differ from the text bank's")
+    agree = float(np.mean(success["fast"] == success["highest"]))
+    log(f"[rp] --no-dedup-text success bits equal the bank run's on {N_NO_DEDUP} items; fast agrees with highest "
+        f"on {agree:.2%} of {N_RP} items")
+    return total
+
+
+def path_pa(c: dict) -> dict:
+    """PA through ``pa.main`` on 4 phrases x 256 items, held to the PA
+    recomputed here in numpy (float64) from the logits the CLI's scorer
+    returned."""
+    saved = os.path.join(SCRATCH, "pa.txt")
+    reset_counters()
+    with recording(ClipPairScorer, "logits") as got:
+        t0 = time.perf_counter()
+        pa.main(["--image_dir", c["images"], "--weights", c["weights"], "--bpe_path", c["bpe"],
+                 "--pa_input_file", c["pa"], "--batch_size", str(BATCH), "--saved_file_path", saved])
+        torch.cuda.synchronize()
+        t_cli = time.perf_counter() - t0
+    launches = counts()
+    n = len(PA_PHRASES) * N_PA
+    per_phrase = -(-N_PA // BATCH)
+    require(launches["normalize"] == len(PA_PHRASES) * per_phrase, "PA: K1 launched once per image batch")
+    with open(saved) as f:
+        require(f.read().startswith("PA = "), "PA result file format")
+    value = result_io.read_pa_result(saved)
+    scores = []
+    for p in range(len(PA_PHRASES)):
+        logits = np.concatenate(got[p * per_phrase:(p + 1) * per_phrase]).astype(np.float64)
+        p_gt = 1.0 / (1.0 + np.exp(logits[:, 1] - logits[:, 0]))
+        scores.append(float(np.sum(p_gt > PA_SUCCESS_THRESHOLD)) / N_PA)
+    host = float(np.mean(scores))
+    log(f"[pa] CLI {t_cli:.2f} s ({n / t_cli:.1f} items/s = images/s end to end); PA {value!r}, host numpy {host!r} "
+        f"(per phrase {scores}); launches {launches}")
+    require(value == host, f"PA {value} differs from the host's {host} on the same logits")
+    return launches
+
+
+def clip_checks(c: dict) -> dict:
+    """The scorers themselves: the bf16 fast tower against highest on one
+    batch (5e-2 of the logits' scale), the bank against the direct path (1e-4),
+    the card's f32 logits against the port's CPU logits on 16 PA items (1e-3;
+    the CPU path is the one the tests hold against the JAX package); then
+    where the time goes: the CLI's start-up, one batch of the direct path,
+    the host loader alone, each tower's time by events per batch of 64, and
+    the text bank's captions/s.  Returns what clip_device_times needs."""
+    items = c["items"][:BATCH]
+    t0 = time.perf_counter()
+    sd = clip_vit.load_params(c["weights"])
+    t_load = time.perf_counter() - t0
+    highest = ClipPairScorer(sd, "cuda")
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0 - t_load
+    fast = ClipPairScorer(sd, "cuda", fast=True)
+    tok = SimpleTokenizer(c["bpe"])
+    imgs = np.stack([center_crop_resize(os.path.join(c["images"], f"{it['caption_id']}.png"), CLIP_SIZE)
+                     for it in items])
+    caps = sorted({t for it in items for t in [it["caption"], *it["mismatched_captions"]]})
+    row = {t: i for i, t in enumerate(caps)}
+    idx = np.asarray([[row[t] for t in [it["caption"], *it["mismatched_captions"]]] for it in items], np.int32)
+    toks = tok.tokenize(caps)
+    logits = {name: s.logits_from_bank(imgs, s.encode_text_bank(toks), idx) for name, s in
+              (("highest", highest), ("fast", fast))}
+    scale = float(np.abs(logits["highest"]).max())
+    err = float(np.abs(logits["fast"] - logits["highest"]).max())
+    direct = highest.logits(imgs[:16], toks[idx[:16]])
+    direct_err = float(np.abs(direct - logits["highest"][:16]).max())
+    log(f"[clip] one batch of {BATCH} items x 100 captions: fast logits vs highest max_abs_err {err:.3e} "
+        f"({err / scale:.2e} of scale {scale:.3f}); direct vs bank path on 16 items {direct_err:.3e}")
+    require(err <= 5e-2 * scale, f"fast logits differ from highest by {err} > 5e-2 x {scale}")
+    require(direct_err <= 1e-4 * scale, f"direct logits differ from the bank path's by {direct_err}")
+    # one batch of the --no-dedup-text path, part by part (host clock; logits() ends in a copy to the host)
+    t0 = time.perf_counter()
+    batch_toks = np.stack([tok.tokenize([it["caption"], *it["mismatched_captions"]]) for it in items])
+    t_tok = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    highest.logits(imgs, batch_toks)
+    t_direct = time.perf_counter() - t0
+    log(f"[time clip] start-up: load_params {t_load:.2f} s, ClipPairScorer on the card {t_build:.2f} s; one "
+        f"--no-dedup-text batch of {BATCH} x 100 captions: tokenize {t_tok:.3f} s, logits {t_direct:.3f} s")
+    pa_items = c["pa_data"]["left"][:16]
+    pa_imgs = np.stack([center_crop_resize(os.path.join(c["images"], "left", f"{it['caption_id']}.png"), CLIP_SIZE)
+                        for it in pa_items])
+    pa_toks = np.stack([tok.tokenize([it["caption"], it["false_caption"]]) for it in pa_items])
+    card = highest.logits(pa_imgs, pa_toks)
+    t0 = time.perf_counter()
+    cpu = ClipPairScorer(sd, "cpu").logits(pa_imgs, pa_toks)
+    t_cpu = time.perf_counter() - t0
+    cpu_scale, cpu_err = float(np.abs(cpu).max()), float(np.abs(card - cpu).max())
+    log(f"[clip] card f32 logits (TF32 off) vs the port's CPU logits on 16 PA items: max_abs_err {cpu_err:.3e} "
+        f"(scale {cpu_scale:.3f}; CPU run {t_cpu:.1f} s)")
+    require(np.isfinite(card).all() and card.shape == (16, 2), "card logits")
+    require(cpu_err <= 1e-3 * cpu_scale, f"card logits differ from CPU logits by {cpu_err} > 1e-3 x {cpu_scale}")
+
+    files = [os.path.join(c["images"], f"{i}.png") for i in range(N_RP)]
+    t0 = time.perf_counter()
+    for batch in ImageFolderLoader(files, BATCH, CLIP_SIZE, resample=BICUBIC, center_crop=True):
+        pass
+    host_img_s = len(files) / (time.perf_counter() - t0)
+    x = torch.from_numpy(batch.images).cuda()
+    t64 = torch.from_numpy(toks[:BATCH].astype(np.int64)).cuda()
+    times = {}
+    with torch.inference_mode():
+        for name, s in (("highest", highest), ("fast", fast)):
+            times[f"image tower {name}"] = median_ms(lambda: s.encode_images(x), reps=5, inner=4, warmup=2)
+            times[f"text tower {name}"] = median_ms(lambda: s.encode_text(t64), reps=5, inner=4, warmup=2)
+    t0 = time.perf_counter()
+    all_toks = SimpleTokenizer(c["bpe"]).tokenize(c["captions"])
+    t_tok_all = time.perf_counter() - t0
+    bank_rate = {}
+    for name, s in (("highest", highest), ("fast", fast)):
+        s.encode_text_bank(all_toks[:1024])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.encode_text_bank(all_toks)
+        torch.cuda.synchronize()
+        bank_rate[name] = len(all_toks) / (time.perf_counter() - t0)
+    log(f"[time clip] host loader alone (PNG decode, bicubic resize, crop) {host_img_s:.1f} images/s; per batch of "
+        f"{BATCH} on the device: " + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
+        + " (image towers include K1); text bank " + ", ".join(f"{k} {v:.1f} captions/s" for k, v in bank_rate.items())
+        + f"; tokenizing the {len(all_toks)} captions on the host {t_tok_all:.3f} s")
+    require(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
+            "the fast text tower left TF32 off")
+    return {"images": x, "tokens": t64, "scorers": {"highest": highest, "fast": fast}, "events_ms": times}
+
+
+def clip_device_times(t: dict) -> None:
+    """Each tower's time on the device per batch of 64 (torch.profiler: the
+    sum of its kernels) beside its time by events from clip_checks: where the
+    two differ, the host's launches set the pace.  Run last, with
+    probe_device_times."""
+    with torch.inference_mode():
+        for name, s in t["scorers"].items():
+            for tower, fn in (("image tower", lambda: s.encode_images(t["images"])),
+                              ("text tower", lambda: s.encode_text(t["tokens"]))):
+                us = device_us(fn, calls=4)
+                log(f"[time clip] {tower} {name} on the device (torch.profiler): "
+                    f"{'not measured' if us is None else f'{us / 1e3:.3f} ms'} against "
+                    f"{t['events_ms'][f'{tower} {name}']:.3f} ms by events")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     smi = setup()
@@ -949,10 +1280,15 @@ def main() -> None:
     check_trunks_against_cpu(state_dict)
     f32 = path_fid_f32(d, state_dict)
     per_path = [f32["launches"], path_fid_fast(d, state_dict, f32), path_is_star(d), path_o_is(d), path_probes()]
+    c = make_clip_data()
+    per_path += [path_rp(c), path_pa(c)]
+    towers = clip_checks(c)
     shutil.rmtree(SCRATCH)
     pool_device_times(gen)
-    normalize_device_times(gen)
-    probe_device_times()
+    floor_us = launch_floor()
+    normalize_device_times(gen, floor_us)
+    probe_device_times(floor_us)
+    clip_device_times(towers)
     kernels = []
     for name, (_, route, source, replaces) in KERNELS.items():
         launches = sum(p[name] for p in per_path)

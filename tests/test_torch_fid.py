@@ -294,6 +294,8 @@ def test_port_imports_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(tise_tpu_torch.__path__, 'tise_tpu_torch.')]\n"
         "for required in ('metrics.fid', 'metrics.o_fid', 'metrics.is_star', 'metrics.o_is', 'ops.kl',\n"
         "                 'backbones.inception_fast', 'backbones.inception_slim',\n"
+        "                 'metrics.rp_coco', 'metrics.pa', 'metrics.clip_scorer',\n"
+        "                 'backbones.clip_vit', 'backbones.clip_fast', 'backbones.clip_tokenizer',\n"
         "                 'tools.mosaic_probe', 'tools.stem_mm_probe'):\n"
         "    assert 'tise_tpu_torch.' + required in names, required\n"
         "for name in names:\n"

@@ -23,6 +23,7 @@ from PIL import Image
 IMG_EXTENSIONS = (".jpg", ".jpeg", ".png")
 
 BILINEAR = Image.BILINEAR
+BICUBIC = Image.BICUBIC
 
 
 def list_images(root: str) -> List[str]:
@@ -45,6 +46,23 @@ def load_image(path: str, size: Tuple[int, int], resample=BILINEAR) -> np.ndarra
         return np.asarray(im, dtype=np.uint8)
 
 
+def center_crop_resize(path: str, size: int, resample=BICUBIC) -> np.ndarray:
+    """CLIP's preprocessing geometry: resize the shorter side to ``size``
+    (bicubic; the new size rounded with Python's ``round``), then crop the
+    centre ``size`` x ``size`` (openai/CLIP ``_transform``; RP_coco.py:64,
+    PA.py:34)."""
+    with Image.open(path) as im:
+        im = im.convert("RGB")
+        w, h = im.size
+        scale = size / min(w, h)
+        nw, nh = round(w * scale), round(h * scale)
+        im = im.resize((nw, nh), resample)
+        left = (nw - size) // 2
+        top = (nh - size) // 2
+        im = im.crop((left, top, left + size, top + size))
+        return np.asarray(im, dtype=np.uint8)
+
+
 @dataclass
 class Batch:
     """A fixed-shape host batch."""
@@ -57,7 +75,9 @@ class Batch:
 class ImageFolderLoader:
     """Threaded decode + prefetch over a list of image files: a thread pool
     decodes and PIL-resizes one batch while the device consumes the previous
-    one (the reference's DataLoader, num_workers=8, fid_score.py:215-217)."""
+    one (the reference's DataLoader, num_workers=8, fid_score.py:215-217).
+    ``center_crop`` decodes with :func:`center_crop_resize` (CLIP's geometry)
+    instead of resizing both sides."""
 
     def __init__(
         self,
@@ -66,6 +86,7 @@ class ImageFolderLoader:
         image_size: int,
         *,
         resample=BILINEAR,
+        center_crop: bool = False,
         drop_last: bool = False,
         num_workers: int = 8,
         prefetch: int = 2,
@@ -74,6 +95,7 @@ class ImageFolderLoader:
         self.batch_size = batch_size
         self.image_size = image_size
         self.resample = resample
+        self.center_crop = center_crop
         self.drop_last = drop_last
         self.num_workers = num_workers
         self.prefetch = prefetch
@@ -91,6 +113,8 @@ class ImageFolderLoader:
         return (n // self.batch_size) * self.batch_size if self.drop_last else n
 
     def _decode(self, path: str) -> np.ndarray:
+        if self.center_crop:
+            return center_crop_resize(path, self.image_size, self.resample)
         return load_image(path, (self.image_size, self.image_size), self.resample)
 
     def _make_batch(self, pool: ThreadPoolExecutor, chunk: Sequence[str]) -> Batch:

@@ -7,15 +7,18 @@ Byte-identical to the reference formats:
   IS* coco -> ``[Inception Score] mean: {:.5f} std: {:.5f}``
                                                    (inception_score_star_coco.py:154)
   O-IS     -> ``O-IS: <mean> +-  <std>``           (object_centric_inception_score.py:127)
+  RP coco  -> ``R-precision: <mean> +- <std>``     (RP_coco.py:90)
+  PA       -> ``PA = <float>``                     (PA.py:71)
 Reference statistics are npz archives with ``mu``/``sigma`` arrays
-(fid_score.py:200-203).
+(fid_score.py:200-203); the RP and PA inputs are pickles.
 """
 
 from __future__ import annotations
 
 import os
+import pickle
 import re
-from typing import List, Tuple
+from typing import Any, List, Tuple
 
 import numpy as np
 
@@ -48,6 +51,14 @@ def write_o_is_result(path: str, mean: float, std: float) -> None:
     _write(path, f"O-IS: {mean} +-  {std}")
 
 
+def write_rp_coco_result(path: str, mean: float, std: float) -> None:
+    _write(path, f"R-precision: {mean} +- {std}")
+
+
+def write_pa_result(path: str, pa: float) -> None:
+    _write(path, f"PA = {pa}")
+
+
 def _floats(path: str) -> List[float]:
     """All float literals in the file, in order."""
     with open(path) as f:
@@ -66,6 +77,11 @@ def read_is_result(path: str) -> Tuple[float, float]:
 
 read_is_coco_result = read_is_result
 read_o_is_result = read_is_result
+read_rp_coco_result = read_is_result
+
+
+def read_pa_result(path: str) -> float:
+    return _floats(path)[0]
 
 
 def load_stats_npz(path: str) -> Tuple[np.ndarray, np.ndarray]:
@@ -79,3 +95,16 @@ def save_stats_npz(path: str, mu: np.ndarray, sigma: np.ndarray) -> None:
     if d:
         os.makedirs(d, exist_ok=True)
     np.savez(path, mu=mu, sigma=sigma)
+
+
+def load_pickle(path: str) -> Any:
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def save_pickle(path: str, obj: Any) -> None:
+    d = os.path.dirname(path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump(obj, f)
