@@ -29,13 +29,23 @@ of CLIP ViT-B/32 at 224 x 224:
     first 256 with ``--no-dedup-text`` (the same success bits); PA on 4
     phrases x 256 items, held to the PA recomputed on the host from the same
     logits; then the scorers themselves (fast against highest, the bank
-    against the direct path, the card's logits against the CPU's).
+    against the direct path, the card's logits against the CPU's);
+  * the CUB track at the full width of the DAMSM encoders (a vocabulary of
+    5,450 words, embedding 300, 2 x 128 LSTM units, InceptionV3 at 299, nef
+    256) with seeded weights written as the reference's ``.pth`` files: the
+    card's cnn_code and sent_emb against the CPU's on one batch; RP-CUB
+    (``metrics.rp_cub.main``) on 2,048 items of 100 captions over 256 x 256
+    PNGs in ``highest`` and ``fast``, each result file held to the bins
+    recomputed here from its per-item successes, and a run that fails partway
+    resumed from its snapshot to the same bytes; then the track runner
+    (``benchmark.main(["--track", "cub", ...])``) over the reference's layout,
+    each value held to its CLI run on the same inputs, and its ``--resume``.
 
 Launch counters, set to 0 before each path and read after it, show that each
 path ran its kernels.  K1 is held to its plain version bit for bit in every
 recipe, f32 and bf16, at the three main-path shapes (299, 64 and CLIP's 224
-px), a ragged size and an unaligned view; at those shapes (CLIP's in f32 and
-bf16) it prints its time by events, by the host's clock and on the device (a
+px), a ragged size and an unaligned view, and under ``half`` at RP-CUB's
+[32, 256, 256, 3]; at those shapes (CLIP's in f32 and bf16) it prints its time by events, by the host's clock and on the device (a
 reading it requires) beside its bytes bound and its library call,
 ``torch.addcmul``.  The launch floor, the device time of P3's kernel on an
 f32 [1, 2] input, is printed beside K1's and the probes' device times.  K2 is held to its
@@ -59,6 +69,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import io
 import json
 import os
 import shutil
@@ -71,14 +82,15 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from tise_tpu_torch.backbones import clip_vit, inception_slim
+from tise_tpu_torch import benchmark
+from tise_tpu_torch.backbones import clip_vit, damsm, inception_slim
 from tise_tpu_torch.backbones.clip_tokenizer import SimpleTokenizer
 from tise_tpu_torch.backbones.inception_v3 import BasicConv2d, InceptionV3, random_state_dict
 from tise_tpu_torch.core import io as result_io
 from tise_tpu_torch.core.config import (IS_STAR_TEMPERATURE_COCO, IS_STAR_TEMPERATURE_CUB, NUM_SPLITS,
                                         O_IS_TEMPERATURE, PA_SUCCESS_THRESHOLD, configure_precision)
-from tise_tpu_torch.core.data import BICUBIC, ImageFolderLoader, center_crop_resize, list_images
-from tise_tpu_torch.metrics import fid, is_star, o_fid, o_is, pa, rp_coco
+from tise_tpu_torch.core.data import BICUBIC, ImageFolderLoader, center_crop_resize, list_images, load_image
+from tise_tpu_torch.metrics import fid, is_star, o_fid, o_is, pa, rp_coco, rp_cub
 from tise_tpu_torch.metrics.clip_scorer import ClipPairScorer
 from tise_tpu_torch.ops import fast_pool, native, sqrtm, stats
 from tise_tpu_torch.ops.fast_pool import avg_pool_kernel, avg_pool_plain
@@ -100,11 +112,14 @@ N_COCO = 5120      # IS* COCO: every image is scored
 N_CUB = 2600       # IS* CUB: shuffled, then the tail beyond 40 batches of 64 is dropped
 N_CROPS = 256      # O-FID and O-IS
 BATCH = 64
+CUB_BATCH = 32       # rp_cub's default batch: the DAMSM trunk pools at this batch
 NATIVE = 64        # side of the PNGs on disk
 CLIP_SIZE = 224    # CLIP's input side
 EDGE_POOL_SHAPES = [(2, 1, 1, 2048), (2, 1, 5, 8), (2, 5, 1, 8)]
 # C not a multiple of 8 (bf16 scalar instance), C not a multiple of 4 (f32 scalar), rows cut into column chunks
 RAGGED_POOL_SHAPES = [(2, 17, 17, 36), (2, 6, 300, 30), (2, 5, 300, 64)]
+# the trunk's six pool shapes at RP-CUB's batch, which the geometry cuts otherwise than at 64
+DAMSM_POOL_SHAPES = [(CUB_BATCH, *shape[1:]) for shape, _ in POOL_SHAPES]
 # published peaks of one H100 SXM (NVIDIA's data sheet): device memory, f32
 # outside the tensor cores, dense bf16 in them
 PEAK_BYTES_S, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
@@ -277,15 +292,19 @@ def check_normalize(gen: torch.Generator) -> dict:
 
 def check_avg_pool(gen: torch.Generator) -> dict:
     """K2 bit for bit (``torch.equal``) against its plain version in f32 and
-    bf16, both count modes, at every shape of the main paths, the 1-wide edge
+    bf16, both count modes, at every shape of the main paths (the trunk's at
+    batch 64 and at the DAMSM trunk's 32, the thin ones), the 1-wide edge
     shapes and the ragged ones, which between them reach every instance the
-    wrapper chooses; then each trunk and thin shape timed by events against
-    its bytes bound, and the nine pools of a batch and the nine thin ones as
-    sums (their device times: pool_device_times)."""
+    wrapper chooses, each with the cut it chose; then each trunk, thin and
+    DAMSM shape timed by events against its bytes bound, and the nine pools
+    of a batch, the nine thin ones and the nine of a DAMSM batch as sums
+    (their device times: pool_device_times)."""
     max_err, ms, plain_ms, library_ms, nbytes = 0.0, 0.0, 0.0, 0.0, 0
     thin = {"kernel": 0.0, "plain": 0.0, "bytes": 0}
     seen = set()
-    shapes = [(s, n, "trunk") for s, n in POOL_SHAPES] + [(s, n, "thin") for s, n in THIN_POOL_SHAPES]
+    damsm = {"kernel": 0.0, "bytes": 0}
+    shapes = ([(s, n, "trunk") for s, n in POOL_SHAPES] + [(s, n, "thin") for s, n in THIN_POOL_SHAPES]
+              + [(s, n, "damsm") for s, (_, n) in zip(DAMSM_POOL_SHAPES, POOL_SHAPES)])
     for shape, per_batch, kind in shapes + [(s, 0, "edge") for s in EDGE_POOL_SHAPES + RAGGED_POOL_SHAPES]:
         x = torch.randn(shape, generator=gen, device="cuda")
         for include_pad in (True, False):
@@ -293,23 +312,29 @@ def check_avg_pool(gen: torch.Generator) -> dict:
                 xi = x.to(dtype)
                 got, ref = avg_pool_kernel(xi, include_pad), avg_pool_plain(xi, include_pad)
                 torch.cuda.synchronize()
-                instance = fast_pool.pool_geometry(shape, dtype, xi.data_ptr() % 16 == 0).instance
-                seen.add(instance)
+                g = fast_pool.pool_geometry(shape, dtype, xi.data_ptr() % 16 == 0)
+                seen.add(g.instance)
                 require(got.dtype == dtype and got.shape == ref.shape, f"pool {shape} dtype/shape")
                 err = float((got.float() - ref.float()).abs().max())
-                log(f"[K2 avg_pool] {str(shape):22s} include_pad={include_pad!s:5s} {str(dtype):15s} {instance:7s} "
-                    f"max_abs_err {err:.3e}")
-                require(torch.equal(got, ref), f"pool {shape} pad={include_pad} {dtype} ({instance}): {err}")
+                log(f"[K2 avg_pool] {str(shape):22s} include_pad={include_pad!s:5s} {str(dtype):15s} {g.instance:7s} "
+                    f"slice {g.cvb} vectors, bands of {g.band_h} rows, grid {g.grid}: max_abs_err {err:.3e}")
+                require(torch.equal(got, ref), f"pool {shape} pad={include_pad} {dtype} ({g.instance}): {err}")
                 if dtype == torch.float32:
                     max_err = max(max_err, err)
         if kind == "edge":
             continue
         k = median_ms(lambda: avg_pool_kernel(x, True))
-        p = median_ms(lambda: avg_pool_plain(x, True))
         least = bound(2 * x.numel() * 4)["bound_ms"]
         g = fast_pool.pool_geometry(shape, torch.float32)
         where = (f"{g.instance}, slice {g.cvb} vectors, bands of {g.band_h} rows, grid {g.grid}, {g.threads} threads; "
-                 f"kernel {k:.4f} ms, bound {least:.4f} ms ({least / k:.1%} of it), plain {p:.4f} ms")
+                 f"kernel {k:.4f} ms, bound {least:.4f} ms ({least / k:.1%} of it)")
+        if kind == "damsm":
+            log(f"[K2 avg_pool] damsm {str(shape):22s} f32: {where} (x{per_batch} per RP-CUB batch)")
+            damsm["kernel"] += per_batch * k
+            damsm["bytes"] += per_batch * 2 * x.numel() * 4
+            continue
+        p = median_ms(lambda: avg_pool_plain(x, True))
+        where += f", plain {p:.4f} ms"
         if kind == "thin":
             log(f"[K2 avg_pool] thin {str(shape):22s} f32: {where} (x{per_batch} per batch)")
             thin["kernel"] += per_batch * k
@@ -333,6 +358,9 @@ def check_avg_pool(gen: torch.Generator) -> dict:
         f"({least / ms:.1%} of it), plain {plain_ms:.4f} ms, F.avg_pool2d {library_ms:.4f} ms. The nine thin pools of "
         f"the fast trunk: kernel {thin['kernel']:.4f} ms against {thin_least:.4f} ms ({thin_least / thin['kernel']:.1%}), "
         f"plain {thin['plain']:.4f} ms")
+    damsm_least = bound(damsm["bytes"])["bound_ms"]
+    log(f"[K2 avg_pool] the nine pools of one DAMSM trunk batch of {CUB_BATCH}: kernel {damsm['kernel']:.4f} ms against "
+        f"{damsm_least:.4f} ms ({damsm_least / damsm['kernel']:.1%})")
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **bound(nbytes)}
 
 
@@ -671,6 +699,7 @@ def make_data() -> dict:
     torch.save(state80, d["weights80"])
     d["slim"], d["g2015"] = os.path.join(SCRATCH, "slim.npz"), os.path.join(SCRATCH, "g2015.npz")
     np.savez(d["slim"], **tf_layout_vars(state_is, "slim", seed=21, head_std=1.0 / pool3_norm))
+    d["state_is"] = state_is
     np.savez(d["g2015"], **tf_layout_vars(state_is, "2015", seed=22, head_std=1.0 / pool3_norm))
     log(f"[data] 2 x {N_IMAGES} + {N_COCO} + {N_CUB} + 2 x {N_CROPS} PNGs and three calibrated trunks in four weight files "
         f"in {time.perf_counter() - t0:.1f} s (mean pool3 norm of the IS* trunk {pool3_norm:.1f})")
@@ -1264,6 +1293,437 @@ def clip_device_times(t: dict) -> None:
                     f"{t['events_ms'][f'{tower} {name}']:.3f} ms by events")
 
 
+# ---------------------------------------------------------------------------
+# 6. the CUB track: the DAMSM encoders, RP-CUB and the track runner
+# ---------------------------------------------------------------------------
+
+N_CUB_RP = 2048      # RP-CUB items, one 256 x 256 PNG each: also the runner's image folder
+N_CUB_REF = 2048     # PNGs of the folder whose statistics become bird_val.npz
+CUB_NTOKEN = 5450    # the CUB vocabulary (tise_tpu/models/attngan_pp/trainer.py:45)
+CUB_POOL = 4096      # captions the RP items draw from
+CUB_FAIL_AT = 7      # the RP block at which the failing run raises
+CUB_SNAPSHOT_EVERY = 128
+
+
+def check_normalize_half(gen: torch.Generator) -> dict:
+    """K1 under ``half`` at RP-CUB's [32, 256, 256, 3] (f32): bit for bit
+    against its plain version, its time by events, the plain version's and
+    ``torch.addcmul``'s, beside the bytes bound (its device time:
+    cub_device_times)."""
+    x = torch.randint(0, 256, (CUB_BATCH, 256, 256, 3), generator=gen, device="cuda", dtype=torch.uint8)
+    got, ref = normalize_kernel(x, "half"), normalize_plain(x, "half")
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    require(torch.equal(got, ref), f"normalize half {list(x.shape)}: max_abs_err {err}")
+    library = normalize_library_call("half")
+    lib_err = float((library(x) - ref).abs().max())
+    tol = torch.finfo(torch.float32).eps * (255 * RECIPES["half"][0][0] + float(ref.abs().max()))  # as in check_normalize
+    require(lib_err <= tol, f"torch.addcmul differs from K1's plain version under half by {lib_err} > {tol}")
+    ms, plain_ms = median_ms(lambda: normalize_kernel(x, "half")), median_ms(lambda: normalize_plain(x, "half"))
+    library_ms = median_ms(lambda: library(x))
+    enqueue, drained = host_us(lambda: normalize_kernel(x, "half"))
+    least = bound(normalize_bytes(x, torch.float32))
+    log(f"[K1 normalize] half float32 {list(x.shape)}: torch.equal to the plain version; events {ms:.4f} ms, host "
+        f"{enqueue:.2f} us a call ({drained:.2f} us with the queue drained), plain {plain_ms:.4f} ms, torch.addcmul "
+        f"{library_ms:.4f} ms (max_abs_err {lib_err:.3e} to plain); bound {least['bound_ms']:.5f} ms "
+        f"({normalize_bytes(x, torch.float32) / 1e6:.2f} MB)")
+    return {"x": x, "library": library, **least}
+
+
+def cub_image(i: int) -> np.ndarray:
+    """Seeded 256 x 256 image i: cells of 16 pixels with noise."""
+    rng = np.random.RandomState(3000 + i)
+    cells = np.kron(rng.randint(0, 224, (16, 16, 3)), np.ones((16, 16, 1)))
+    return (cells + rng.randint(0, 32, (256, 256, 3))).astype(np.uint8)
+
+
+def mean_pool3_norm(state, images: np.ndarray, recipe: str) -> float:
+    """The mean norm of pool3 of a torchvision-layout trunk on ``images``
+    (PIL-resized to 299, normalized under ``recipe``)."""
+    from PIL import Image
+
+    model = InceptionV3.from_state_dict(state, device="cuda")
+    x = np.stack([np.asarray(Image.fromarray(im).resize((fid.IMAGE_SIZE,) * 2, Image.BILINEAR)) for im in images])
+    with torch.no_grad():
+        return float(model(normalize_kernel(torch.from_numpy(x).cuda(), recipe))["pool3"].norm(dim=1).mean())
+
+
+def make_cub_data(d: dict) -> dict:
+    """The standard layout of the CUB track under build/chip_smoke/cub/: 2,048
+    seeded PNGs named ``<caption_id>.png`` (the images under test) and 2,048
+    more whose statistics become ``bird_val.npz`` (written later, by the FID
+    CLI); a vocabulary of 5,450 words in ``captions.pickle``; 2,048 RP items,
+    each its caption and 99 mismatched ones drawn from a pool of 4,096
+    synthetic captions of 1-25 words; the FID weights of the earlier paths
+    (a hard link); the IS* CUB trunk of the earlier paths with its head
+    scaled to logits of order 1 on these images (the earlier scale, set on
+    64 x 64 noise, saturates the softmax here and IS* comes out NaN); the
+    DAMSM encoders at full width as reference-layout ``.pth`` files: the
+    text encoder from ``random_rnn_state_dict(5, 5450)``, the image encoder
+    a trunk whose BatchNorm statistics are calibrated on 128 of the images
+    under ``half`` and the heads of ``random_cnn_state_dict(6)``."""
+    from PIL import Image
+
+    t0 = time.perf_counter()
+    root = os.path.join(SCRATCH, "cub")
+    data, weights = os.path.join(root, "data"), os.path.join(root, "weights")
+    images, reference = os.path.join(root, "images"), os.path.join(root, "reference")
+    os.makedirs(images)
+    os.makedirs(reference)
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda i: Image.fromarray(cub_image(i)).save(os.path.join(images, f"{i}.png")), range(N_CUB_RP)))
+        list(pool.map(lambda i: Image.fromarray(cub_image(N_CUB_RP + i)).save(os.path.join(reference, f"{i}.png")),
+                      range(N_CUB_REF)))
+    ixtoword = {0: "<end>", **{i: f"w{i}" for i in range(1, CUB_NTOKEN)}}
+    rng = np.random.RandomState(41)
+    captions = []
+    for _ in range(CUB_POOL):
+        words = [ixtoword[j] for j in rng.randint(1, CUB_NTOKEN, rng.randint(1, 26))]
+        words[0] = words[0].capitalize()
+        captions.append(" ".join(words[:-1] + [words[-1] + ","]) if len(words) > 3 else " ".join(words) + ".")
+    items = []
+    for i in range(N_CUB_RP):
+        gt = rng.randint(CUB_POOL)
+        others = rng.randint(CUB_POOL - 1, size=99)
+        others += others >= gt
+        items.append({"caption_id": i, "caption": captions[gt], "mismatched_captions": [captions[j] for j in others]})
+
+    def place(base: str, rel: str) -> str:
+        path = os.path.join(base, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        return path
+
+    c = {"root": root, "images": images, "reference": reference, "data": data, "weights": weights,
+         "items": items, "captions": captions, "wordtoix": {w: i for i, w in ixtoword.items()},
+         "stats": place(data, benchmark.DATA["cub_fid_stats"]),
+         "rp": place(data, benchmark.DATA["cub_rp_captions"]),
+         "vocab": place(data, benchmark.DATA["cub_captions_pickle"]),
+         "fid_weights": place(weights, benchmark.WEIGHTS["inception"]),
+         "slim": place(weights, benchmark.WEIGHTS["inception_cub"]),
+         "text": place(weights, benchmark.WEIGHTS["damsm_text"]),
+         "image": place(weights, benchmark.WEIGHTS["damsm_image"])}
+    result_io.save_pickle(c["rp"], items)
+    result_io.save_pickle(c["vocab"], [[], [], ixtoword, c["wordtoix"]])
+    os.link(d["weights"], c["fid_weights"])
+    sample = np.stack([cub_image(i) for i in range(128)])
+    norm = mean_pool3_norm(d["state_is"], sample, "is_star")
+    np.savez(c["slim"], **tf_layout_vars(d["state_is"], "slim", seed=21, head_std=1.0 / norm))
+    torch.save({k: torch.from_numpy(v) for k, v in damsm.random_rnn_state_dict(5, CUB_NTOKEN).items()}, c["text"])
+    trunk, _ = calibrated_state(3, 1000, sample, "half")
+    heads = {k: torch.from_numpy(v) for k, v in damsm.random_cnn_state_dict(6).items() if k.startswith("emb_")}
+    torch.save({**{k: v for k, v in trunk.items() if not k.startswith("fc.")}, **heads}, c["image"])
+    log(f"[cub data] {N_CUB_RP} + {N_CUB_REF} PNGs of 256x256, {N_CUB_RP} RP items over {CUB_POOL} captions and "
+        f"{CUB_NTOKEN} words, DAMSM weights at full width in {time.perf_counter() - t0:.1f} s")
+    return c
+
+
+def cub_batch(c: dict):
+    """The first block of RP items as the CLI feeds them: uint8 images and packed captions."""
+    imgs = np.stack([load_image(os.path.join(c["images"], f"{i}.png"), (256, 256)) for i in range(CUB_BATCH)])
+    sets = [[rp_cub.tokenize_caption(t, c["wordtoix"]) for t in [it["caption"], *it["mismatched_captions"]]]
+            for it in c["items"][:CUB_BATCH]]
+    return imgs, *rp_cub.pack_caption_sets(sets, rp_cub.MAX_LEN)
+
+
+def check_damsm_encoders(c: dict) -> dict:
+    """The DAMSM encoders at full width on one batch of 32 items (32 images,
+    3,200 captions): the card's cnn_code and sent_emb, TF32 off, against the
+    port on the CPU within 1e-4 of their scale (cuDNN's f32 convolutions and
+    LSTM against the CPU's, sums in another order).  Returns the card's
+    scorer and the batch on the card for cub_timings."""
+    rnn_sd, cnn_sd = damsm.load_rnn_state_dict(c["text"]), damsm.load_cnn_state_dict(c["image"])
+    imgs, caps, lens = cub_batch(c)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        scorer = rp_cub.DamsmScorer(rnn_sd, cnn_sd, dev)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            x, tokens = torch.from_numpy(imgs).to(dev), torch.from_numpy(caps.reshape(-1, caps.shape[-1])).to(dev)
+            out[dev] = (scorer.image_codes(x).cpu(), scorer.sentence_codes(tokens, lens.reshape(-1)).cpu())
+        out[f"{dev} s"] = time.perf_counter() - t0
+        if dev == "cuda":
+            card = {"scorer": scorer, "x": x, "tokens": tokens, "lens": lens.reshape(-1)}
+    for i, name in enumerate(("cnn_code", "sent_emb")):
+        got, ref = out["cuda"][i], out["cpu"][i]
+        scale, err = float(ref.abs().max()), float((got - ref).abs().max())
+        log(f"[damsm] {name} {list(got.shape)} card vs CPU: max_abs_err {err:.3e} (scale {scale:.3f}, "
+            f"{err / scale:.2e} of it)")
+        require(bool(torch.isfinite(got).all()) and err <= 1e-4 * scale, f"damsm {name} card vs CPU: {err} of {scale}")
+    log(f"[damsm] one batch of {CUB_BATCH} images and {caps.shape[0] * caps.shape[1]} captions: card "
+        f"{out['cuda s']:.2f} s (first call), CPU {out['cpu s']:.2f} s; captions of {int(lens.min())}-{int(lens.max())} "
+        f"tokens")
+    require(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32, "damsm: TF32 is off")
+    return card
+
+
+def host_bins_text(successes: np.ndarray, seed: int = 0) -> str:
+    """RP-CUB's result file recomputed here from per-item successes: a seeded
+    shuffle, ten equal bins, the mean and deviation of their means."""
+    s = np.array(successes, dtype=np.float64)
+    np.random.RandomState(seed).shuffle(s)
+    bins = [float(np.mean(p)) for p in np.array_split(s, NUM_SPLITS)]
+    return "R mean:{:.6f} std:{:.6f}".format(float(np.mean(bins)), float(np.std(bins)))
+
+
+class FailingScorer:
+    """An RP-CUB scorer that raises at its ``fail_at``-th block (also used by
+    tests/test_torch_rp_cub.py)."""
+
+    def __init__(self, inner, fail_at: int):
+        self.inner, self.fail_at, self.blocks = inner, fail_at, 0
+
+    def dispatch(self, *args):
+        self.blocks += 1
+        if self.blocks == self.fail_at:
+            raise RuntimeError("injected failure")
+        return self.inner.dispatch(*args)
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+
+def path_rp_cub(c: dict, card: dict) -> tuple:
+    """RP-CUB through ``rp_cub.main`` on 2,048 items in ``highest`` and in
+    ``fast``: each result file equal to the bins recomputed here from the
+    per-item successes that its ``compute_rp_cub`` returned, fast agreeing
+    with highest on at least 99% of items; then a run that fails at its
+    seventh block (after a snapshot at 160 items) and the same command
+    resuming it to the highest run's bytes.  K1 once and K2 nine times a
+    block of 32.  Returns each run's launches and the highest run's result
+    file."""
+    common = ["--image_dir", c["images"], "--rp_input_file", c["rp"], "--captions_pickle", c["vocab"],
+              "--text_encoder", c["text"], "--image_encoder", c["image"]]
+    blocks = -(-N_CUB_RP // CUB_BATCH)
+    per_path, text, success = [], {}, {}
+    for tag, extra in (("highest", []), ("fast", ["--precision", "fast"])):
+        saved = os.path.join(c["root"], f"rp_cub_{tag}.txt")
+        reset_counters()
+        with recording(rp_cub, "compute_rp_cub") as got:
+            t0 = time.perf_counter()
+            rp_cub.main([*common, "--saved_file_path", saved, *extra])
+            torch.cuda.synchronize()
+            t_cli = time.perf_counter() - t0
+        per_path.append(counts())
+        with open(saved) as f:
+            text[tag] = f.read()
+        success[tag] = got[0][2]
+        log(f"[rp-cub {tag}] CLI {t_cli:.2f} s ({N_CUB_RP / t_cli:.1f} items/s = images/s end to end); {text[tag]}; "
+            f"{int(success[tag].sum())} of {N_CUB_RP} items succeed; launches {per_path[-1]}")
+        require(success[tag].shape == (N_CUB_RP,), f"RP-CUB {tag}: {success[tag].shape} successes")
+        require(text[tag] == host_bins_text(success[tag]), f"RP-CUB {tag}: {text[tag]!r} vs its successes' bins "
+                                                           f"{host_bins_text(success[tag])!r}")
+        require(per_path[-1]["normalize"] == blocks and per_path[-1]["avg_pool_3x3_s1_p1"] == 9 * blocks,
+                f"RP-CUB {tag}: K1 once and K2 9x per block ({blocks} blocks)")
+        require(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
+                f"RP-CUB {tag} left TF32 off")
+    agree = float(np.mean(success["fast"] == success["highest"]))
+    log(f"[rp-cub] fast agrees with highest on {agree:.2%} of {N_CUB_RP} items")
+    require(agree >= 0.99, f"RP-CUB fast agrees with highest on {agree:.2%} < 99% of items")
+
+    snap = os.path.join(c["root"], "rp_cub.snapshot.npz")
+    try:
+        rp_cub.score_items(c["items"], c["images"], FailingScorer(card["scorer"], CUB_FAIL_AT), c["wordtoix"],
+                           snapshot_path=snap, snapshot_every=CUB_SNAPSHOT_EVERY)
+        raise AssertionError("the failing RP-CUB run did not fail")
+    except RuntimeError as e:
+        require(str(e) == "injected failure", f"RP-CUB failing run: {e}")
+    with np.load(snap) as z:
+        cursor = int(z["cursor"])
+    saved = os.path.join(c["root"], "rp_cub_resumed.txt")
+    reset_counters()
+    t0 = time.perf_counter()
+    rp_cub.main([*common, "--saved_file_path", saved, "--snapshot_file", snap])
+    torch.cuda.synchronize()
+    t_cli = time.perf_counter() - t0
+    per_path.append(counts())
+    with open(saved) as f:
+        resumed = f.read()
+    rest = -(-(N_CUB_RP - cursor) // CUB_BATCH)
+    log(f"[rp-cub resume] failed at block {CUB_FAIL_AT} with a snapshot at {cursor} items; the same command resumed "
+        f"in {t_cli:.2f} s: {resumed} (straight run: {text['highest']}); launches {per_path[-1]}")
+    require(resumed == text["highest"], "RP-CUB resumed run differs from the straight run")
+    require(not os.path.exists(snap), "RP-CUB: a finished run deletes its snapshot")
+    require(per_path[-1]["normalize"] == rest, f"RP-CUB resume: K1 launched for the {rest} blocks left")
+    return per_path, text["highest"]
+
+
+def cub_timings(c: dict, card: dict) -> dict:
+    """Where an RP-CUB run's time goes: host decode of the 2,048 PNGs (8
+    threads), tokenizing the pool's 4,096 unique captions once each (as
+    ``score_items``'s cache does), looking up and packing one block's 3,200,
+    and the image encoder (K1, the upsample, the f32 trunk, the head) and the
+    text encoder (embedding and the packed LSTM over 3,200 captions) a block
+    of 32 on the device by events.  Returns what cub_device_times needs."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda i: load_image(os.path.join(c["images"], f"{i}.png"), (256, 256)), range(N_CUB_RP)))
+    decode = N_CUB_RP / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    token_ids = {t: rp_cub.tokenize_caption(t, c["wordtoix"]) for t in c["captions"]}
+    t_pool = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rp_cub.pack_caption_sets([[token_ids[t] for t in [it["caption"], *it["mismatched_captions"]]]
+                              for it in c["items"][:CUB_BATCH]], rp_cub.MAX_LEN)
+    t_pack = time.perf_counter() - t0
+    s = card["scorer"]
+    with torch.inference_mode():
+        ms = {"image encoder": median_ms(lambda: s.image_codes(card["x"]), reps=5, inner=4, warmup=2),
+              "text encoder": median_ms(lambda: s.sentence_codes(card["tokens"], card["lens"]), reps=5, inner=4,
+                                        warmup=2)}
+    log(f"[time rp-cub] host decode {decode:.1f} images/s; tokenizing the {CUB_POOL} unique captions {t_pool:.3f} s; "
+        f"looking up and packing a block's 3,200 {t_pack * 1e3:.1f} ms; per block of "
+        f"{CUB_BATCH} on the device (events): " + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items()))
+    return {**card, "events_ms": ms}
+
+
+def read_value(path: str, reader) -> float:
+    value = reader(path)
+    value = value[0] if isinstance(value, tuple) else value
+    require(np.isfinite(value), f"{path}: {value}")
+    return value
+
+
+class _Tee:
+    """stdout that is also kept in a buffer."""
+
+    def __init__(self, out):
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, s):
+        self.buf.write(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def path_cub_runner(c: dict, rp_text: str) -> list:
+    """``bird_val.npz`` from the reference folder through the FID CLI's
+    ``--save_stats``; FID and IS* CUB through their CLIs on the images; then
+    ``benchmark.main(["--track", "cub", ...])`` over the layout: FID, IS*
+    and RP all present, no ``FAIL``, each within 1e-6 relative of its CLI run
+    on the same inputs (RP: the highest run of path_rp_cub); then a
+    ``--resume`` rerun that parses all three stages and launches nothing.
+    Returns each run's launches."""
+    per_path, direct = [], {}
+    runs = (
+        ("stats", lambda: fid.main(["--path1", c["reference"], "--save_stats", c["stats"],
+                                    "--weights", c["fid_weights"]])),
+        ("FID", lambda: fid.main(["--path1", c["stats"], "--path2", c["images"], "--weights", c["fid_weights"],
+                                  "--saved_file", os.path.join(c["root"], "fid.txt")])),
+        ("IS*", lambda: is_star.main(["--image_folder", c["images"], "--flavor", "cub", "--weights", c["slim"],
+                                      "--saved_file", os.path.join(c["root"], "is_star.txt")])),
+    )
+    for name, run in runs:
+        reset_counters()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        per_path.append(counts())
+        log(f"[cub {name}] CLI {time.perf_counter() - t0:.2f} s; launches {per_path[-1]}")
+    direct["FID"] = read_value(os.path.join(c["root"], "fid.txt"), result_io.read_fid_result)
+    direct["IS*"] = read_value(os.path.join(c["root"], "is_star.txt"), result_io.read_is_result)
+    direct["RP"] = float(rp_text[len("R mean:"):].split()[0]) * 100
+    argv = ["--track", "cub", "--method_name", "smoke", "--images", c["images"], "--data_root", c["data"],
+            "--weights_root", c["weights"], "--output_root", os.path.join(c["root"], "results")]
+    out = {}
+    for tag, extra in (("run", []), ("resume", ["--resume"])):
+        reset_counters()
+        tee = _Tee(sys.stdout)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            values = benchmark.main(argv + extra)
+        torch.cuda.synchronize()
+        out[tag] = (values, tee.buf.getvalue(), counts(), time.perf_counter() - t0)
+    values, text, launches, t_run = out["run"]
+    per_path.append(launches)
+    log(f"[cub runner] {t_run:.2f} s; values {values} against the CLIs' {direct}; launches {launches}")
+    require("FAIL" not in text and "SKIP" not in text, "the CUB runner reported a FAIL or a SKIP")
+    require(set(values) == {"FID", "IS*", "RP"}, f"the CUB runner's values {values}")
+    for key, ref in direct.items():
+        require(abs(values[key] - ref) <= 1e-6 * abs(ref), f"runner {key} {values[key]} vs its CLI's {ref}")
+    b64, b32 = N_CUB_RP // BATCH, -(-N_CUB_RP // CUB_BATCH)
+    require(launches["normalize"] == 2 * b64 + b32 and launches["avg_pool_3x3_s1_p1"] == 9 * (2 * b64 + b32),
+            "the CUB runner: K1 once and K2 9x per batch of its three stages")
+    values, text, launches, t_run = out["resume"]
+    log(f"[cub runner --resume] {t_run:.2f} s; values {values}")
+    require(text.count("[benchmark] RESUME") == 3 and "[benchmark] RUN" not in text, "--resume ran a stage again")
+    require(values == out["run"][0] and not any(launches.values()), "--resume changed a value or launched a kernel")
+    return per_path
+
+
+L2_BYTES = 50 * 2 ** 20  # the L2 cache of one H100 SXM (NVIDIA's data sheet)
+
+
+def cold_device_us(fn, empty, calls: int = 20):
+    """Device time of one call of ``fn`` with ``empty()`` (an L2 flush) run
+    before it: the sum of the kernels that torch.profiler records, less the
+    kernels that ``empty`` launches on its own; or None where it records
+    none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def kernels(body) -> dict:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                body()
+            torch.cuda.synchronize()
+        return {e.key: getattr(e, "device_time_total", 0) for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA}
+
+    fn()
+    empty()
+    torch.cuda.synchronize()
+    flush_kernels = set(kernels(empty))
+    require(bool(flush_kernels), "torch.profiler recorded no kernel of the L2 flush")
+    for _ in range(PROFILE_TRIES):
+        total = sum(t for k, t in kernels(lambda: (empty(), fn())).items() if k not in flush_kernels)
+        if total > 0:
+            return total / calls
+    return None
+
+
+def cub_device_times(gen: torch.Generator, half: dict, floor_us: float, t: dict) -> None:
+    """K1 under ``half`` on the device (required), beside its bound, in launch
+    floors and beside ``torch.addcmul``: as every kernel is read here, with
+    the same buffers call after call, and with the L2 cache emptied before
+    each call by a read of 256 MB; the K1 cases of NORMALIZE_TIMED under
+    ``clip`` cold as well.  Their bytes fit in L2, where the repeated calls
+    find them.  Then the DAMSM image and text encoders a block of 32 on the
+    device beside their time by events.  Run last, with
+    probe_device_times."""
+    flush = torch.zeros(64 * 2 ** 20, device="cuda")  # 256 MB of f32
+    empty = lambda: flush.sum()  # noqa: E731
+    require(cold_device_us(lambda: None, empty) is None, "the L2 flush is counted as the call")
+    cases = [(f"half float32 {list(half['x'].shape)}", half["x"], "half", torch.float32, half["library"])]
+    xs = normalize_inputs(gen)
+    cases += [(f"{recipe} {str(dtype)[6:]} {list(xs[label].shape)}", xs[label], recipe, dtype,
+               normalize_library_call(recipe, dtype)) for label, recipe, dtype in NORMALIZE_TIMED if recipe == "clip"]
+    for label, x, recipe, dtype, library in cases:
+        require(normalize_bytes(x, dtype) <= L2_BYTES, f"K1 {label} does not fit in L2")
+        least = bound(normalize_bytes(x, dtype))["bound_ms"]
+        if recipe == "half":
+            warm, lib_warm = device_us(lambda: normalize_kernel(x, recipe, dtype)), device_us(lambda: library(x))
+            require(warm is not None, f"torch.profiler recorded no K1 kernel at {label} in {PROFILE_TRIES} runs")
+            log(f"[K1 normalize] {label} on the device (torch.profiler), the same buffers call after call: "
+                f"{against(warm, least)}, {warm / floor_us:.2f} launch floors; torch.addcmul "
+                f"{'not measured' if lib_warm is None else f'{lib_warm / 1e3:.5f} ms'}")
+        cold = cold_device_us(lambda: normalize_kernel(x, recipe, dtype), empty)
+        require(cold is not None, f"torch.profiler recorded no K1 kernel at {label} in {PROFILE_TRIES} runs")
+        lib_cold = cold_device_us(lambda: library(x), empty)
+        log(f"[K1 normalize] {label} on the device (torch.profiler), L2 emptied by a 256 MB read before each "
+            f"call: {against(cold, least)}, {cold / floor_us:.2f} launch floors; torch.addcmul "
+            f"{'not measured' if lib_cold is None else f'{lib_cold / 1e3:.5f} ms'}")
+    del flush
+    s = t["scorer"]
+    with torch.inference_mode():
+        for name, fn in (("image encoder", lambda: s.image_codes(t["x"])),
+                         ("text encoder", lambda: s.sentence_codes(t["tokens"], t["lens"]))):
+            us = device_us(fn, calls=4)
+            log(f"[time rp-cub] {name} on the device (torch.profiler): "
+                f"{'not measured' if us is None else f'{us / 1e3:.3f} ms'} against {t['events_ms'][name]:.3f} ms "
+                f"by events")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     smi = setup()
@@ -1283,12 +1743,22 @@ def main() -> None:
     c = make_clip_data()
     per_path += [path_rp(c), path_pa(c)]
     towers = clip_checks(c)
+    t_cub = time.perf_counter()
+    half = check_normalize_half(gen)
+    cub = make_cub_data(d)
+    card = check_damsm_encoders(cub)
+    rp_paths, rp_text = path_rp_cub(cub, card)
+    per_path += rp_paths
+    encoders = cub_timings(cub, card)
+    per_path += path_cub_runner(cub, rp_text)
+    log(f"[cub] the CUB track's phases took {time.perf_counter() - t_cub:.1f} s")
     shutil.rmtree(SCRATCH)
     pool_device_times(gen)
     floor_us = launch_floor()
     normalize_device_times(gen, floor_us)
     probe_device_times(floor_us)
     clip_device_times(towers)
+    cub_device_times(gen, half, floor_us, encoders)
     kernels = []
     for name, (_, route, source, replaces) in KERNELS.items():
         launches = sum(p[name] for p in per_path)

@@ -296,7 +296,8 @@ def test_port_imports_no_jax():
         "                 'backbones.inception_fast', 'backbones.inception_slim',\n"
         "                 'metrics.rp_coco', 'metrics.pa', 'metrics.clip_scorer',\n"
         "                 'backbones.clip_vit', 'backbones.clip_fast', 'backbones.clip_tokenizer',\n"
-        "                 'tools.mosaic_probe', 'tools.stem_mm_probe'):\n"
+        "                 'tools.mosaic_probe', 'tools.stem_mm_probe',\n"
+        "                 'backbones.damsm', 'metrics.rp_cub', 'benchmark'):\n"
         "    assert 'tise_tpu_torch.' + required in names, required\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"

@@ -176,7 +176,7 @@ class TestAvgPool:
 # every shape chip_smoke.py holds K2 to on the card, and ragged ones: C = 36,
 # W = 1, H = 1, W = 300
 GEOMETRY_SHAPES = ([s for s, _ in chip_smoke.POOL_SHAPES] + [s for s, _ in chip_smoke.THIN_POOL_SHAPES]
-                   + chip_smoke.EDGE_POOL_SHAPES + chip_smoke.RAGGED_POOL_SHAPES
+                   + chip_smoke.DAMSM_POOL_SHAPES + chip_smoke.EDGE_POOL_SHAPES + chip_smoke.RAGGED_POOL_SHAPES
                    + [(2, 9, 1, 36), (2, 1, 300, 64), (3, 300, 3, 40)])
 
 
@@ -231,11 +231,13 @@ class TestPoolGeometry:
         assert g.vec == 1 and g.instance == "scalar"
 
     def test_main_path_pools_fill_the_card(self):
-        """The trunk's and the fast trunk's pools take whole rows and give at
+        """The trunk's (at batch 64 and at the DAMSM trunk's 32) and the fast
+        trunk's pools take whole rows and give at
         least MIN_BLOCKS blocks, or, where a pool is too small for that, cut
         it as finely as the rule allows: slices of MIN_CVB vectors, bands of
         MIN_BAND rows."""
-        for shape, _ in chip_smoke.POOL_SHAPES + chip_smoke.THIN_POOL_SHAPES:
+        main_path = [s for s, _ in chip_smoke.POOL_SHAPES + chip_smoke.THIN_POOL_SHAPES] + chip_smoke.DAMSM_POOL_SHAPES
+        for shape in main_path:
             g = fast_pool.pool_geometry(shape, torch.float32)
             assert g.instance == "vector" and g.n_chunks == 1 and g.chunk_w == shape[2]
             if g.grid[0] * g.grid[1] * g.grid[2] < fast_pool.MIN_BLOCKS:

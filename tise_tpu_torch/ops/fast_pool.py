@@ -113,6 +113,8 @@ def _geometry(shape: Sequence[int], itemsize: int, aligned: bool, target_threads
     cvb = next((d for d in widths if b * per_image[d] * most_bands >= min_blocks), widths[-1])
     n_bands = max(1, min(most_bands, _cdiv(min_blocks, b * per_image[cvb])))
     band_h = _cdiv(h, n_bands)
+    while band_h > min_band and _cdiv(h, band_h) < n_bands:  # rounding the band up lost a band
+        band_h -= 1
     n_bands = _cdiv(h, band_h)
     threads = (chunk_w + 2) * cvb
     instance = "chunked" if n_chunks > 1 else ("vector" if vec > 1 else "scalar")
