@@ -39,7 +39,19 @@ of CLIP ViT-B/32 at 224 x 224:
     recomputed here from its per-item successes, and a run that fails partway
     resumed from its snapshot to the same bytes; then the track runner
     (``benchmark.main(["--track", "cub", ...])``) over the reference's layout,
-    each value held to its CLI run on the same inputs, and its ``--resume``.
+    each value held to its CLI run on the same inputs, and its ``--resume``;
+  * the detection stack at the full width of Faster R-CNN R50-FPN (800 x
+    800, 1,000 proposals, ROIAlign sampling 2, 80 classes) with seeded
+    detectron2-layout weights whose classifier is calibrated on seeded
+    256 x 256 PNGs of blobs on noise: the card's FPN maps and detections
+    against the CPU's on 4 images; SOA (``metrics.soa.main``) over 80
+    label folders of 4 images, its result file held to SOA recomputed here
+    from its pickles, a run that fails after 10 labels resumed to the same
+    bytes, and the fast preset (bf16, sampling 1, 256 proposals) on the same
+    layout; ``metrics.crop_objects.main`` on 256 images (512-4,096 crops,
+    one a valid box), a run killed after its first slab resumed to the same
+    files; then the crops through O-IS and O-FID, with K1 and K2 counted;
+    the stages of a batch timed by events, NCHW against channels last.
 
 Launch counters, set to 0 before each path and read after it, show that each
 path ran its kernels.  K1 is held to its plain version bit for bit in every
@@ -72,6 +84,7 @@ import functools
 import io
 import json
 import os
+import pickle
 import shutil
 import statistics
 import subprocess
@@ -85,12 +98,15 @@ import torch
 from tise_tpu_torch import benchmark
 from tise_tpu_torch.backbones import clip_vit, damsm, inception_slim
 from tise_tpu_torch.backbones.clip_tokenizer import SimpleTokenizer
+from tise_tpu_torch.backbones.detection import predictor, rcnn
+from tise_tpu_torch.backbones.detection import weights as det_weights
+from tise_tpu_torch.backbones.detection.coco_classes import COCO_CLASSES
 from tise_tpu_torch.backbones.inception_v3 import BasicConv2d, InceptionV3, random_state_dict
 from tise_tpu_torch.core import io as result_io
 from tise_tpu_torch.core.config import (IS_STAR_TEMPERATURE_COCO, IS_STAR_TEMPERATURE_CUB, NUM_SPLITS,
                                         O_IS_TEMPERATURE, PA_SUCCESS_THRESHOLD, configure_precision)
 from tise_tpu_torch.core.data import BICUBIC, ImageFolderLoader, center_crop_resize, list_images, load_image
-from tise_tpu_torch.metrics import fid, is_star, o_fid, o_is, pa, rp_coco, rp_cub
+from tise_tpu_torch.metrics import crop_objects, fid, is_star, o_fid, o_is, pa, rp_coco, rp_cub, soa
 from tise_tpu_torch.metrics.clip_scorer import ClipPairScorer
 from tise_tpu_torch.ops import fast_pool, native, sqrtm, stats
 from tise_tpu_torch.ops.fast_pool import avg_pool_kernel, avg_pool_plain
@@ -448,6 +464,21 @@ def pool_device_times(gen: torch.Generator) -> None:
             xs += [x] * per_batch
         log(f"[K2 avg_pool] {label} on the device (torch.profiler): "
             f"{against(device_us(lambda: [avg_pool_kernel(x, True) for x in xs], calls=5), least)}")
+
+
+def epilogue_device_times(gen: torch.Generator) -> None:
+    """K3 at the main path's n = 2048 on the device from torch.profiler,
+    beside ``torch.addmm``'s, against its operations bound (required).  Run
+    last, with probe_device_times."""
+    n = 2048
+    a, b = (torch.randn(n, n, generator=gen, device="cuda") for _ in range(2))
+    eye = 1.5 * torch.eye(n, device="cuda")
+    us = device_us(lambda: epilogue_matmul_kernel(a, b, 1.5, -0.5), calls=5)
+    require(us is not None, f"torch.profiler recorded no K3 kernel in {PROFILE_TRIES} profiled runs")
+    lib_us = device_us(lambda: torch.addmm(eye, a, b, beta=1.0, alpha=-0.5), calls=5)
+    log(f"[K3 epilogue_matmul] n=2048 on the device (torch.profiler): "
+        f"{against(us, bound(3 * n * n * 4, 2 * n ** 3, PEAK_F32)['bound_ms'])}; torch.addmm "
+        f"{'not measured' if lib_us is None else f'{lib_us / 1e3:.5f} ms'}")
 
 
 def normalize_device_times(gen: torch.Generator, floor_us: float) -> None:
@@ -1652,6 +1683,440 @@ def path_cub_runner(c: dict, rp_text: str) -> list:
     return per_path
 
 
+# ---------------------------------------------------------------------------
+# 7. the detection stack: Faster R-CNN R50-FPN at 800 px, SOA, and the
+#    detector's crops through O-IS and O-FID
+# ---------------------------------------------------------------------------
+
+DET_SIDE = 256            # the phase's PNGs; the detector resizes them to 800
+DET_PER_LABEL = 4         # SOA: 80 label folders of 4 images, one batch each in highest
+N_DET_CROP = 256          # crop_objects' source folder
+DET_FAIL_AFTER = 10       # the SOA run that fails does so after this many labels
+DET_SLAB = 64             # the slab of the crop run that is killed after its first
+DET_PER_IMAGE = 6.0       # detections an image the classifier is calibrated to: 1,536 crops from 256 images
+DET_CALIBRATION = 16      # crop sources the classifier is calibrated on
+
+
+def det_image(seed: int) -> np.ndarray:
+    """A seeded 256 x 256 RGB image of 3-7 smooth coloured blobs on noise."""
+    rng = np.random.RandomState(seed)
+    ys, xs = np.mgrid[0:DET_SIDE, 0:DET_SIDE].astype(np.float32)
+    img = rng.uniform(0, 48, (DET_SIDE, DET_SIDE, 3)).astype(np.float32)
+    for _ in range(rng.randint(3, 8)):
+        cy, cx = rng.uniform(0, DET_SIDE, 2)
+        s = rng.uniform(DET_SIDE / 24, DET_SIDE / 5)
+        img += np.exp(-((ys - cy) ** 2 + (xs - cx) ** 2) / (2 * s * s))[..., None] * rng.uniform(60, 200, 3)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+FAST_PRESET = {"dtype": torch.bfloat16, "roi_sampling": 1, "proposals": 256}
+
+
+def fc2_features(det, images_bgr: np.ndarray) -> tuple:
+    """(proposals, valid, the box head's fc2 output after its relu in f64)
+    of ``det`` on ``images_bgr``, a batch at a time."""
+    m, parts = det.model, []
+    with torch.inference_mode():
+        for i in range(0, len(images_bgr), det.batch_size):
+            x = det._upload(images_bgr[i: i + det.batch_size])
+            feats = m.features(x)
+            props, valid = m.proposals(feats, tuple(x.shape[-2:]))
+            roi = m.box_features(feats, props).flatten(-3)
+            parts.append((props, valid, m.box_head.fc2(torch.relu(m.box_head.fc1(roi))).relu().double()))
+    return tuple(torch.cat(t) for t in zip(*parts))
+
+
+def calibrated_detector_weights(sd: dict, images_bgr: np.ndarray, per_image: float = DET_PER_IMAGE,
+                                spread: float = 4.0, seed: int = 0) -> dict:
+    """``sd`` (detectron2 layout) with its classifier rebuilt from the
+    card's forward on ``images_bgr`` at 800 px (a data-dependent init).
+
+    The raw random box head maps every proposal to nearly the same fc2
+    vector, so one class wins everywhere and, as the classifier's gain
+    grows, the count of detections jumps from none to the cap of 100 an
+    image.  Here the 80 class rows are seeded random directions applied to
+    the fc2 output less its mean over the images' valid proposals, scaled to
+    a spread of ``spread`` logits, and the background logit is a constant
+    set by bisection so that the images give ``per_image`` detections on
+    average in the exact preset: scores spread over (0.5, 1), many classes.
+    The fast preset's ROIAlign at one sample a bin moves the mean fc2
+    vector; the class directions are made orthogonal to that move, so that
+    both presets see the same margin to the background.  The box deltas
+    stay zero."""
+    sd = dict(sd)
+    state = det_weights.state_dict_from_detectron2(sd)
+    props, valid, h = fc2_features(predictor.Detector(state), images_bgr)
+    fast = fc2_features(predictor.Detector(state, **FAST_PRESET), images_bgr)
+    mu = h[valid].mean(0)
+    shift = fast[2][fast[1]].mean(0) - mu
+    shift /= shift.norm()
+    w = torch.from_numpy(np.random.RandomState(seed).randn(80, h.shape[-1])).to(h)
+    w -= (w @ shift)[:, None] * shift
+    w *= spread / float(((h[valid] - mu) @ w.T).std())
+
+    def count(beta: float, props, valid, h) -> float:
+        fg = h @ w.T - w @ mu
+        logits = torch.cat([fg, torch.full_like(fg[..., :1], beta)], -1).float()
+        deltas = torch.zeros(*logits.shape[:-1], 320, device=logits.device)
+        return float(rcnn.postprocess_detections(props, valid, logits, deltas, *images_bgr.shape[1:3]).valid.sum(1)
+                     .float().mean())
+
+    lo, hi = -20.0, 60.0
+    for _ in range(30):
+        mid = (lo + hi) / 2
+        lo, hi = (mid, hi) if count(mid, props, valid, h) > per_image else (lo, mid)
+    weight = torch.zeros(81, h.shape[-1], dtype=torch.float64, device=h.device)
+    weight[:80] = w
+    bias = torch.cat([-(w @ mu), torch.tensor([hi], dtype=torch.float64, device=h.device)])
+    sd["roi_heads.box_predictor.cls_score.weight"] = weight.float().cpu().numpy()
+    sd["roi_heads.box_predictor.cls_score.bias"] = bias.float().cpu().numpy()
+    log(f"[det data] classifier calibrated on {len(images_bgr)} images: background logit {hi:.3f}, "
+        f"{count(hi, props, valid, h):.2f} detections an image (the fast preset {count(hi, *fast):.2f})")
+    return sd
+
+
+def make_det_data() -> dict:
+    """SOA's layout (80 folders ``label_NN_<name>/`` of 4 PNGs), crop's
+    source folder of 256 PNGs, and seeded weights (``rpn_gain`` 5, the
+    classifier calibrated on the first 16 crop sources) as a detectron2
+    ``.pkl``, under build/chip_smoke/det/."""
+    from PIL import Image
+
+    t0 = time.perf_counter()
+    root = os.path.join(SCRATCH, "det")
+    jobs = []
+    for label, name in enumerate(COCO_CLASSES):
+        folder = os.path.join(root, "soa", f"label_{label:02d}_{name.replace(' ', '_')}")
+        os.makedirs(folder)
+        jobs += [(os.path.join(folder, f"{j}.png"), 1000 + DET_PER_LABEL * label + j) for j in range(DET_PER_LABEL)]
+    os.makedirs(os.path.join(root, "src"))
+    jobs += [(os.path.join(root, "src", f"{i:03d}.png"), 5000 + i) for i in range(N_DET_CROP)]
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda job: Image.fromarray(det_image(job[1])).save(job[0]), jobs))
+    calibration = [predictor.load_bgr_image(os.path.join(root, "src", f"{i:03d}.png"))[0]
+                   for i in range(DET_CALIBRATION)]
+    sd = calibrated_detector_weights(det_weights.random_detectron2_state_dict(0, rpn_gain=5.0), np.stack(calibration))
+    pkl = os.path.join(root, "model_final.pkl")
+    with open(pkl, "wb") as f:
+        pickle.dump({"model": sd}, f)
+    log(f"[det data] {len(jobs)} PNGs of {DET_SIDE} x {DET_SIDE} and the seeded detectron2 weights in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"root": root, "soa": os.path.join(root, "soa"), "src": os.path.join(root, "src"), "pkl": pkl}
+
+
+def host_iou(a: np.ndarray, b: np.ndarray) -> float:
+    lt, rb = np.maximum(a[:2], b[:2]), np.minimum(a[2:], b[2:])
+    inter = float(np.prod(np.clip(rb - lt, 0, None)))
+    union = float(np.prod(a[2:] - a[:2]) + np.prod(b[2:] - b[:2])) - inter
+    return inter / max(union, 1e-9)
+
+
+def det_matched(a: list, b: list, score_tol: float = 0.05, iou_min: float = 0.85) -> float:
+    """The share of detections (class, box, score) in ``a`` with a partner
+    in ``b``: the same class, scores within ``score_tol``, IoU above
+    ``iou_min`` (tests/test_detection.py's rule)."""
+    hits = sum(any(ca == cb and abs(sa - sb) <= score_tol and host_iou(ba, bb) > iou_min for cb, bb, sb in b)
+               for ca, ba, sa in a)
+    return hits / max(len(a), 1)
+
+
+def det_rows(det: tuple, i: int) -> list:
+    """Image ``i``'s valid detections as ((i, class), box, score): pooled
+    over images, a detection matches only within its own image."""
+    boxes, scores, classes, valid = det
+    return [((i, int(classes[i, j])), boxes[i, j], float(scores[i, j])) for j in range(len(valid[i])) if valid[i, j]]
+
+
+def check_detector_against_cpu(c: dict) -> None:
+    """(a) The detector on the card (f32, TF32 off) against the same
+    detector on the CPU on 4 images at 800 px: P2..P6 within 1e-3 of each
+    map's scale, the 4 images' detections matched >= 0.9 both ways."""
+    files = sorted(list_images(c["src"]))[:4]
+    u8 = np.stack([predictor.load_bgr_image(f)[0] for f in files])
+    card, cpu = predictor.Detector(c["pkl"]), predictor.Detector(c["pkl"], device="cpu")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        maps = [(g.float().cpu(), h) for g, h in zip(card.model.features(card._upload(u8)),
+                                                      cpu.model.features(cpu._upload(u8)))]
+        got, want = card.detect_batch(u8), cpu.detect_batch(u8)
+    t_cpu = time.perf_counter() - t0
+    errs = [float((g - h).abs().max()) / max(float(h.abs().max()), 1e-12) for g, h in maps]
+    card_rows = [r for i in range(len(files)) for r in det_rows(got, i)]
+    cpu_rows = [r for i in range(len(files)) for r in det_rows(want, i)]
+    shares = det_matched(card_rows, cpu_rows), det_matched(cpu_rows, card_rows)
+    log(f"[det card vs cpu] P2..P6 max_abs_err / scale {', '.join(f'{e:.2e}' for e in errs)}; detections a "
+        f"image {[int(v.sum()) for v in got[3]]} (card) {[int(v.sum()) for v in want[3]]} (CPU), matched "
+        f"{shares[0]:.4f} and {shares[1]:.4f} of them both ways; the CPU forward and both runs {t_cpu:.1f} s")
+    require(all(e <= 1e-3 for e in errs), f"FPN maps card vs CPU: {errs}")
+    require(len(cpu_rows) > 0, "the CPU detector found nothing")
+    require(min(shares) >= 0.9, f"detections card vs CPU matched {shares}")
+
+
+def soa_from_pickles(det_dir: str) -> str:
+    """SOA's result file recomputed here from the per-label pickles.  The
+    labels split into top and bottom 40 by image count; where counts tie
+    (here every label has 4 images) the reference keeps the order in which
+    ``os.listdir`` gives the pickles, and so does this."""
+    acc, total = {}, {}
+    for name in os.listdir(det_dir):
+        if name.startswith("detected_label_"):
+            label = int(name[len("detected_label_"):][:2])
+            dets = result_io.load_pickle(os.path.join(det_dir, name))
+            total[label] = len(dets)
+            acc[label] = sum(label in ids for _, ids, _ in dets.values()) / max(len(dets), 1)
+    labels = sorted(acc, key=lambda l: total[l])
+    n = len(labels)
+    soa_c = sum(acc[l] for l in acc) / n
+    soa_i = sum(total[l] * acc[l] for l in acc) / max(sum(total.values()), 1)
+    top, bot = sum(acc[l] for l in labels[40:]) / (0.5 * n), sum(acc[l] for l in labels[:40]) / (0.5 * n)
+    return ("Class average accuracy for all classes (SOA-C) is: {:6.4f} \n".format(soa_c)
+            + "Image weighted average accuracy (SOA-I) is: {:6.4f} \n".format(soa_i)
+            + "Top (SOA-C-Top40) and Bottom (SOA-C-Bot40) 40 class average accuracy is: "
+            "{:6.4f} and {:6.4f}".format(top, bot))
+
+
+class FailingDetector:
+    """A detector that raises on its ``fail_on``-th call."""
+
+    def __init__(self, inner, fail_on: int):
+        self.inner, self.fail_on, self.calls = inner, fail_on, 0
+
+    def __call__(self, files):
+        self.calls += 1
+        if self.calls == self.fail_on:
+            raise RuntimeError("injected failure")
+        return self.inner(files)
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+
+def run_cli(tag: str, main, argv: list, images: int) -> dict:
+    """One CLI run from 0 counts: its launches, seconds, images/s, the
+    detectors it built and the labels or slabs they were called on."""
+    reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    with recording(predictor, "make_folder_detector") as built, recording(predictor.Detector, "__call__") as calls:
+        t0 = time.perf_counter()
+        main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    rounds = [r for det in built for r in det.nms_rounds]
+    out = {"launches": counts(), "seconds": seconds, "calls": calls, "built": built}
+    nms = f"NMS rounds max {max(rounds)} mean {np.mean(rounds):.2f} over {len(rounds)} calls; " if rounds else ""
+    log(f"[{tag}] CLI {seconds:.2f} s ({images / seconds:.1f} images/s end to end); {nms}peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches {out['launches']}")
+    return out
+
+
+def path_soa(c: dict) -> list:
+    """(b) SOA through ``soa.main`` on the 80 x 4 layout: the result file
+    equal to SOA recomputed here from its pickles; a run that fails after 10
+    labels, resumed by the same command from the per-label pickles to the
+    same bytes with only the 70 missing labels detected; then the same
+    layout under ``--precision fast --roi-sampling 1 --proposals 256``, its
+    detections matched against the exact run's for the record."""
+    n = len(COCO_CLASSES) * DET_PER_LABEL
+    runs, texts = [], {}
+    for tag, extra in (("exact", []), ("fast", ["--precision", "fast", "--roi-sampling", "1", "--proposals", "256"])):
+        det_dir, saved = os.path.join(c["root"], f"soa_{tag}"), os.path.join(c["root"], f"soa_{tag}.txt")
+        runs.append(run_cli(f"soa {tag}", soa.main, ["--images", c["soa"], "--detected_results", det_dir,
+                                                     "--saved_file", saved, "--weights", c["pkl"], *extra], n))
+        with open(saved) as f:
+            texts[tag] = f.read()
+        log(f"[soa {tag}] {texts[tag]!r}")
+        require(texts[tag] == soa_from_pickles(det_dir), f"SOA {tag}: the result file differs from the pickles' SOA")
+        require(len(runs[-1]["calls"]) == len(COCO_CLASSES), f"SOA {tag}: one detector call a label")
+    exact, fast = os.path.join(c["root"], "soa_exact"), os.path.join(c["root"], "soa_fast")
+    pairs = [(result_io.load_pickle(os.path.join(exact, f)), result_io.load_pickle(os.path.join(fast, f)))
+             for f in sorted(os.listdir(exact)) if f.startswith("detected_")]
+    hits = tot = 0
+    for a, b in pairs:
+        for name in set(a) | set(b):
+            ra = [(i, np.asarray(x), 1.0) for i, x in zip(*a.get(name, [[], [], []])[1:])]
+            rb = [(i, np.asarray(x), 1.0) for i, x in zip(*b.get(name, [[], [], []])[1:])]
+            hits += det_matched(ra, rb) * len(ra)
+            tot += len(ra)
+    log(f"[soa fast] {hits / max(tot, 1):.4f} of the exact run's {tot} detections have a partner in the fast run "
+        f"(class equal, IoU > 0.85); no bound applies (the fast preset is another result class)")
+
+    det_dir, saved = os.path.join(c["root"], "soa_resumed"), os.path.join(c["root"], "soa_resumed.txt")
+    argv = ["--images", c["soa"], "--detected_results", det_dir, "--saved_file", saved, "--weights", c["pkl"]]
+    build = predictor.make_folder_detector
+    predictor.make_folder_detector = lambda *a, **k: FailingDetector(build(*a, **k), DET_FAIL_AFTER + 1)
+    try:
+        soa.main(argv)
+        raise AssertionError("the failing SOA run did not fail")
+    except RuntimeError as e:
+        require("injected failure" in str(e), f"the failing SOA run failed otherwise: {e}")
+    finally:
+        predictor.make_folder_detector = build
+    done = len([f for f in os.listdir(det_dir) if f.startswith("detected_")])
+    resumed = run_cli("soa resumed", soa.main, argv, n - DET_FAIL_AFTER * DET_PER_LABEL)
+    with open(saved) as f:
+        text = f.read()
+    require(done == DET_FAIL_AFTER and len(resumed["calls"]) == len(COCO_CLASSES) - DET_FAIL_AFTER,
+            f"the resumed SOA run detected {len(resumed['calls'])} labels after {done} were saved")
+    require(text == texts["exact"], "the resumed SOA run's result file differs from the straight run's")
+    return [r["launches"] for r in runs] + [resumed["launches"]]
+
+
+def crop_count(calls: list) -> int:
+    """Valid boxes of at least a pixel each way, over the detector's calls."""
+    return sum(1 for preds in calls for _, _, boxes in preds.values() for b in boxes
+               if b[2] - b[0] >= 1.0 and b[3] - b[1] >= 1.0)
+
+
+def path_crops(c: dict, d: dict) -> list:
+    """(c) ``crop_objects.main`` on 256 images: 512-4,096 crops, one for
+    each valid box of at least a pixel each way; a run killed after its
+    first slab of 64 resumed to the same files; then the crops through
+    ``o_is.main`` (K1 once and K2 nine times a batch of 32; the value equal
+    to the same logits scored on the host) and ``o_fid.main`` against
+    crops_b with ``--sqrtm eigh`` (K1 and K2 on both sides), with an 80-class
+    trunk calibrated on the first 256 crops (the O-IS trunk of the earlier
+    path, calibrated on noise, saturates its softmax on these crops)."""
+    dest = os.path.join(c["root"], "crops")
+    crop = run_cli("crop", crop_objects.main, ["--source_image_dir", c["src"], "--saved_cropped_object_dir", dest,
+                                               "--weights", c["pkl"]], N_DET_CROP)
+    files = sorted(os.listdir(dest))
+    n = len(files)
+    log(f"[crop] {n} crops of {N_DET_CROP} images")
+    require(n == crop_count(crop["calls"]), f"{n} crops against {crop_count(crop['calls'])} valid boxes")
+    require(512 <= n <= 4096, f"{n} crops: the calibration must give 512-4,096")
+    resumed = os.path.join(c["root"], "crops_resumed")
+    detector = crop["built"][0]
+    try:
+        crop_objects.crop_folder(FailingDetector(detector, 2), c["src"], resumed, slab=DET_SLAB)
+        raise AssertionError("the killed crop run did not fail")
+    except RuntimeError as e:
+        require("injected failure" in str(e), f"the killed crop run failed otherwise: {e}")
+    first = len(os.listdir(resumed)) - 1  # less the sentinel
+    with recording(predictor.Detector, "__call__") as slabs:
+        crop_objects.crop_folder(detector, c["src"], resumed, slab=DET_SLAB)
+    require(sorted(os.listdir(resumed)) == files and len(slabs) == N_DET_CROP // DET_SLAB - 1,
+            f"the resumed crop run ({len(slabs)} slabs after {first} crops) wrote other files")
+    log(f"[crop] killed after its first slab of {DET_SLAB} images ({first} crops), resumed to the same {n} files")
+
+    from PIL import Image
+
+    sample = []
+    for name in files[:256]:
+        with Image.open(os.path.join(dest, name)) as im:
+            sample.append(np.asarray(im.convert("RGB")))
+    state, _ = calibrated_state(3, 80, sample, "half")  # the head scaled on crops: noise's scale saturates it here
+    weights = os.path.join(c["root"], "inception80_crops.pth")
+    torch.save(state, weights)
+    saved = os.path.join(c["root"], "o_is.txt")
+    o_is_run = run_cli("o-is crops", o_is.main, ["--image_dir", dest, "--weights", weights, "--saved_file", saved], n)
+    batches = -(-n // 32)
+    require(o_is_run["launches"]["normalize"] == batches and o_is_run["launches"]["avg_pool_3x3_s1_p1"] == 9 * batches,
+            f"O-IS on the crops: K1 once and K2 9x per batch of 32 ({batches} batches)")
+    extractor = o_is.make_logits_extractor(fid.load_weights(weights, "weights"), "cuda")
+    logits = extractor.run(ImageFolderLoader.from_dir(dest, 32, fid.IMAGE_SIZE), keys=("logits",))["logits"]
+    require(logits.shape == (n, 80), f"O-IS logits {logits.shape}")
+    check_score("o-is crops", result_io.read_o_is_result(saved), logits, O_IS_TEMPERATURE)
+
+    saved = os.path.join(c["root"], "o_fid.txt")
+    o_fid_run = run_cli("o-fid crops", o_fid.main, ["--path1", dest, "--path2", d["crops_b"], "--weights",
+                                                     weights, "--sqrtm", "eigh", "--saved_file", saved],
+                        n + N_CROPS)
+    with open(saved) as f:
+        text = f.read()
+    batches = -(-n // BATCH) + -(-N_CROPS // BATCH)
+    log(f"[o-fid crops] {text} ({n} crops against {N_CROPS} images)")
+    require(text.startswith("O-FID: ") and np.isfinite(result_io.read_fid_result(saved)), "O-FID on the crops")
+    require(o_fid_run["launches"]["normalize"] == batches and o_fid_run["launches"]["avg_pool_3x3_s1_p1"] == 9 * batches,
+            f"O-FID on the crops: K1 once and K2 9x per batch of {BATCH} ({batches} batches)")
+    return [crop["launches"], o_is_run["launches"], o_fid_run["launches"]]
+
+
+def forward_flops(model: torch.nn.Module, fn) -> dict:
+    """The multiply-add operations (2 a MAC) of the convolutions and dense
+    layers one call of ``fn`` runs, by top-level part of ``model``."""
+    parts = {}
+
+    def hook(name, mod, inputs, out):
+        per_out = (mod.in_channels // mod.groups) * mod.kernel_size[0] * mod.kernel_size[1] \
+            if isinstance(mod, torch.nn.Conv2d) else mod.in_features
+        parts[name] = parts.get(name, 0) + 2 * out.numel() * per_out
+
+    hooks = [mod.register_forward_hook(functools.partial(hook, name.split(".")[0]))
+             for name, mod in model.named_modules() if isinstance(mod, (torch.nn.Conv2d, torch.nn.Linear))]
+    try:
+        fn()
+    finally:
+        for h in hooks:
+            h.remove()
+    return parts
+
+
+DET_STAGES = ("trunk+FPN", "RPN with top-k and NMS", "ROIAlign", "box head and postprocess")
+
+
+def det_stage_ms(det, u8: np.ndarray, reps: int = 5) -> dict:
+    """Each stage of one batch's forward by CUDA events, the median of
+    ``reps`` after a warm-up; the NMS loops' waits for the host count in."""
+    m, times = det.model, []
+    with torch.inference_mode():
+        x = det._upload(u8)
+        hw = tuple(x.shape[-2:])
+        for rep in range(reps + 1):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+            ev[0].record()
+            feats = m.features(x)
+            ev[1].record()
+            props, valid = m.proposals(feats, hw)
+            ev[2].record()
+            roi = m.box_features(feats, props)
+            ev[3].record()
+            m.detect(roi, props, valid, hw)
+            ev[4].record()
+            torch.cuda.synchronize()
+            if rep:
+                times.append([ev[i].elapsed_time(ev[i + 1]) for i in range(4)])
+    return {name: statistics.median(t[i] for t in times) for i, name in enumerate(DET_STAGES)}
+
+
+def det_timings(c: dict) -> None:
+    """Where a detection run's time goes: host decode (open, resize to 800,
+    BGR) of the 256 crop sources on 8 threads; per batch on the device by
+    events, the four stages of the exact preset (f32, batch 4) and of the
+    fast one (bf16, batch 32, ROIAlign sampling 1, 256 proposals), beside
+    their convolutions' and dense layers' operations over the peak of their
+    type (f32 67, bf16 989 TFLOP/s); trunk+FPN in NCHW beside channels
+    last (``predictor.MEMORY_FORMAT`` picks the faster by dtype)."""
+    files = list_images(c["src"])
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        u8 = np.stack([im for im, _ in pool.map(predictor.load_bgr_image, files)])
+    log(f"[time det] host decode (open, resize to 800, BGR) {len(files) / (time.perf_counter() - t0):.1f} images/s "
+        f"on 8 threads")
+    state = det_weights.load_weights(c["pkl"])
+    for tag, preset, batch, peak in (("exact", {}, 4, PEAK_F32), ("fast", FAST_PRESET, 32, PEAK_BF16)):
+        det = predictor.Detector(state, batch_size=batch, **preset)
+        with torch.inference_mode():
+            flops = forward_flops(det.model, lambda: det.model(det._upload(u8[:1])))
+        ms = det_stage_ms(det, u8[:batch])
+        total = sum(ms.values())
+        least = sum(flops.values()) * batch / peak * 1e3
+        log(f"[time det {tag}] per batch of {batch} on the device (events): " + ", ".join(
+            f"{k} {v:.2f} ms" for k, v in ms.items()) + f"; {total:.2f} ms, {batch * 1e3 / total:.1f} images/s; "
+            f"{sum(flops.values()) / 1e9:.1f} GFLOP an image (" + ", ".join(
+                f"{k} {v / 1e9:.1f}" for k, v in flops.items()) + f"), bound {least:.2f} ms ({least / total:.1%})")
+        layouts = {}
+        with torch.inference_mode():
+            x = det._upload(u8[:batch])
+            for name, fmt in (("NCHW", torch.contiguous_format), ("channels last", torch.channels_last)):
+                det.model.to(memory_format=fmt)
+                xf = x.contiguous(memory_format=fmt)
+                layouts[name] = median_ms(lambda: det.model.features(xf), reps=5, inner=2, warmup=1)
+        log(f"[time det {tag}] trunk+FPN a batch of {batch}: " + ", ".join(f"{k} {v:.2f} ms" for k, v in layouts.items())
+            + f"; the detector runs {'channels last' if det.memory_format == torch.channels_last else 'NCHW'}")
+        del det
+        torch.cuda.empty_cache()
+
+
 L2_BYTES = 50 * 2 ** 20  # the L2 cache of one H100 SXM (NVIDIA's data sheet)
 
 
@@ -1752,8 +2217,19 @@ def main() -> None:
     encoders = cub_timings(cub, card)
     per_path += path_cub_runner(cub, rp_text)
     log(f"[cub] the CUB track's phases took {time.perf_counter() - t_cub:.1f} s")
+    t_det = time.perf_counter()
+    det = make_det_data()
+    check_detector_against_cpu(det)
+    per_path += path_soa(det)
+    crops = path_crops(det, d)
+    per_path += crops
+    det_timings(det)
+    log(f"[det] K1 and K2 launched on the detector's crops: " + ", ".join(
+        f"{tag} {p['normalize']} and {p['avg_pool_3x3_s1_p1']}" for tag, p in zip(("O-IS", "O-FID"), crops[1:])))
+    log(f"[det] the detection phase took {time.perf_counter() - t_det:.1f} s")
     shutil.rmtree(SCRATCH)
     pool_device_times(gen)
+    epilogue_device_times(gen)
     floor_us = launch_floor()
     normalize_device_times(gen, floor_us)
     probe_device_times(floor_us)

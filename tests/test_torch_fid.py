@@ -297,7 +297,11 @@ def test_port_imports_no_jax():
         "                 'metrics.rp_coco', 'metrics.pa', 'metrics.clip_scorer',\n"
         "                 'backbones.clip_vit', 'backbones.clip_fast', 'backbones.clip_tokenizer',\n"
         "                 'tools.mosaic_probe', 'tools.stem_mm_probe',\n"
-        "                 'backbones.damsm', 'metrics.rp_cub', 'benchmark'):\n"
+        "                 'backbones.damsm', 'metrics.rp_cub', 'benchmark',\n"
+        "                 'backbones.detection.coco_classes', 'backbones.detection.ops',\n"
+        "                 'backbones.detection.resnet_fpn', 'backbones.detection.rcnn',\n"
+        "                 'backbones.detection.weights', 'backbones.detection.predictor',\n"
+        "                 'metrics.crop_objects', 'metrics.soa'):\n"
         "    assert 'tise_tpu_torch.' + required in names, required\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"

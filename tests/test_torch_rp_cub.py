@@ -427,7 +427,7 @@ def test_runner_fails_a_stage_whose_result_has_no_number(stubbed, monkeypatch, c
 
 
 def test_runner_refuses_the_coco_track(tmp_path):
-    with pytest.raises(SystemExit, match="coco is not ported yet: it needs soa, ca, crop"):
+    with pytest.raises(SystemExit, match="coco is not ported yet: it needs ca, the ranking table, the COCO plan"):
         tbench.main(["--track", "coco", "--method_name", "m", "--images", "x", "--output_root", str(tmp_path),
                      "--device", "cpu"])
     assert not os.path.exists(tmp_path / "m")

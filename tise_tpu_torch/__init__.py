@@ -8,9 +8,11 @@ a kernel written by hand for Hopper in CUDA C++ (``csrc/*.cu``, built with
 nvcc at first use), with a plain PyTorch version beside it that CPU tensors
 use.
 
-Ported so far: FID, O-FID, IS*, O-IS, RP-COCO and PA (``python -m
-tise_tpu_torch.metrics.{fid,o_fid,is_star,o_is,rp_coco,pa}``) and the two
-probe entry points.  This package never imports ``jax`` or ``tise_tpu``.
+Ported so far: FID, O-FID, IS*, O-IS, RP-COCO, PA, RP-CUB, the object crop
+step and SOA (``python -m tise_tpu_torch.metrics.{fid,o_fid,is_star,o_is,
+rp_coco,pa,rp_cub,crop_objects,soa}``), the CUB track runner (``python -m
+tise_tpu_torch.benchmark --track cub``) and the two probe entry points.  This
+package never imports ``jax`` or ``tise_tpu``.
 """
 
 __version__ = "0.1.0"

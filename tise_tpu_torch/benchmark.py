@@ -16,9 +16,9 @@ fails prints ``FAIL`` and the run goes on.  The values go to
 file exists instead of running it again, and refuses when the existing
 results were made with other result-affecting flags (``run_config.json``).
 
-The COCO track needs the detector (SOA, crop, O-IS and O-FID over the crops)
-and the counter (CA), which are not ported yet: ``--track coco`` says so and
-exits.  The JAX runner's persistent compile cache is TPU-only and has no
+The COCO track also needs the counter (CA) and the ranking table, which are
+not ported yet, and its plan (crop, then O-IS and O-FID over the crops, SOA):
+``--track coco`` says so and exits.  The JAX runner's persistent compile cache is TPU-only and has no
 counterpart here.
 """
 
@@ -48,7 +48,7 @@ WEIGHTS = {
     "damsm_image": "text_to_images_models/DAMSMencoders/bird/image_encoder200.pth",
 }
 #: the COCO track's stages that need modules the port does not have yet
-COCO_NOT_PORTED = ("soa", "ca", "crop", "o_is over the crops", "o_fid over the crops", "the ranking table")
+COCO_NOT_PORTED = ("ca", "the ranking table", "the COCO plan of this runner")
 
 
 def resolve_weight(path: str) -> str:
@@ -173,8 +173,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     args = p.parse_args(argv)
     if args.track == "coco":
         raise SystemExit(f"[benchmark] --track coco is not ported yet: it needs {', '.join(COCO_NOT_PORTED)} "
-                         "(the detector and the counter); run the ported COCO metrics one by one "
-                         "(python -m tise_tpu_torch.metrics.{fid,is_star,rp_coco,pa})")
+                         "(the counter and the plan); run the ported COCO metrics one by one "
+                         "(python -m tise_tpu_torch.metrics.{fid,is_star,rp_coco,pa,crop_objects,o_is,o_fid,soa})")
     resolve_device(args.device)
 
     out = os.path.join(args.output_root, args.method_name)

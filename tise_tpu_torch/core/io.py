@@ -10,6 +10,7 @@ Byte-identical to the reference formats:
   RP coco  -> ``R-precision: <mean> +- <std>``     (RP_coco.py:90)
   RP cub   -> ``R mean:{:.6f} std:{:.6f}``         (RP_cub.py:162)
   PA       -> ``PA = <float>``                     (PA.py:71)
+  SOA      -> three lines                          (SOA.py:209-216)
 Reference statistics are npz archives with ``mu``/``sigma`` arrays
 (fid_score.py:200-203); the RP and PA inputs are pickles.
 
@@ -68,13 +69,30 @@ def write_pa_result(path: str, pa: float) -> None:
     _write(path, f"PA = {pa}")
 
 
+def write_soa_result(path: str, soa_c: float, soa_i: float, top40: float, bot40: float) -> None:
+    text = (
+        "Class average accuracy for all classes (SOA-C) is: {:6.4f} \n".format(soa_c)
+        + "Image weighted average accuracy (SOA-I) is: {:6.4f} \n".format(soa_i)
+        + "Top (SOA-C-Top40) and Bottom (SOA-C-Bot40) 40 class average accuracy is: "
+        "{:6.4f} and {:6.4f}".format(top40, bot40)
+    )
+    _write(path, text)
+
+
+_FLOAT = r"[-+]?\d*\.?\d+(?:[eE][-+]?\d+)?"
+
+
+def _short(path: str, text: str, found: int, count: int) -> ValueError:
+    return ValueError(f"{path} holds {found} of the {count} numbers of a result: {text!r}")
+
+
 def _floats(path: str, count: int) -> List[float]:
     """The first ``count`` float literals in the file, in order."""
     with open(path) as f:
         text = f.read()
-    values = [float(v) for v in re.findall(r"[-+]?\d*\.?\d+(?:[eE][-+]?\d+)?", text)]
+    values = [float(v) for v in re.findall(_FLOAT, text)]
     if len(values) < count:
-        raise ValueError(f"{path} holds {len(values)} of the {count} numbers of a result: {text!r}")
+        raise _short(path, text, len(values), count)
     return values[:count]
 
 
@@ -95,6 +113,18 @@ read_rp_cub_result = read_is_result
 
 def read_pa_result(path: str) -> float:
     return _floats(path, 1)[0]
+
+
+def read_soa_result(path: str) -> Tuple[float, float, float, float]:
+    """(SOA-C, SOA-I, top40, bot40): the numbers after the last colon of
+    each line (the label of the third line holds two literal 40s)."""
+    with open(path) as f:
+        text = f.read()
+    lines = [line for line in text.splitlines() if ":" in line]
+    values = [float(v) for line, n in zip(lines, (1, 1, 2)) for v in re.findall(_FLOAT, line.split(":")[-1])[:n]]
+    if len(values) < 4:
+        raise _short(path, text, len(values), 4)
+    return values[0], values[1], values[2], values[3]
 
 
 def load_stats_npz(path: str) -> Tuple[np.ndarray, np.ndarray]:
