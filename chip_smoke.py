@@ -51,15 +51,32 @@ of CLIP ViT-B/32 at 224 x 224:
     layout; ``metrics.crop_objects.main`` on 256 images (512-4,096 crops,
     one a valid box), a run killed after its first slab resumed to the same
     files; then the crops through O-IS and O-FID, with K1 and K2 counted;
-    the stages of a batch timed by events, NCHW against channels last.
+    the stages of a batch timed by events, NCHW against channels last;
+  * the counter at its full width (ResNet-50 at 448 x 448, 240 maps, batch
+    32) with seeded CountSeg-layout weights whose classifier is calibrated
+    on the card's res5 features of 32 seeded 256 x 256 PNGs of blobs on
+    noise: the card against the CPU on 4 images; CA (``metrics.ca.main``)
+    on 1,024 items of 1-3 classes with counts 1-5 in ``highest`` (its
+    result held to CA recomputed here from its counts, which must take at
+    least 3 values with the gate open and shut) and ``fast`` (counts equal
+    to highest's on at least 99% of the items), and a run killed after its
+    first snapshot resumed to the same bytes; the forward, peak stimulation
+    and host decode at 448 timed;
+  * the COCO track runner (``benchmark.main(["--track", "coco", ...])``)
+    over the reference's layout built from the earlier phases' data and
+    weights (256 images): all nine stages, the methods JSON and the RS table
+    with the 11 published methods; a ``--resume`` that parses every stage;
+    and a ``--resume`` without ``crop.done``, in which crop, O-IS and O-FID
+    run again.
 
 Launch counters, set to 0 before each path and read after it, show that each
 path ran its kernels.  K1 is held to its plain version bit for bit in every
-recipe, f32 and bf16, at the three main-path shapes (299, 64 and CLIP's 224
-px), a ragged size and an unaligned view, and under ``half`` at RP-CUB's
-[32, 256, 256, 3]; at those shapes (CLIP's in f32 and bf16) it prints its time by events, by the host's clock and on the device (a
-reading it requires) beside its bytes bound and its library call,
-``torch.addcmul``.  The launch floor, the device time of P3's kernel on an
+recipe, f32 and bf16, at the four main-path shapes (299, 64, CLIP's 224 and
+CA's 448 px), a ragged size and an unaligned view, and under ``half`` at
+RP-CUB's [32, 256, 256, 3]; at those shapes (CLIP's in f32 and bf16, CA's
+under ``imagenet``) it prints its time by events, by the host's clock and on
+the device (a reading it requires; CA's read cold) beside its bytes bound and
+its library call, ``torch.addcmul``.  The launch floor, the device time of P3's kernel on an
 f32 [1, 2] input, is printed beside K1's and the probes' device times.  K2 is held to its
 plain version bit for bit at every shape of the main paths, at 1-wide edge
 shapes and at ragged ones, which between them reach each of its instances;
@@ -96,7 +113,7 @@ import numpy as np
 import torch
 
 from tise_tpu_torch import benchmark
-from tise_tpu_torch.backbones import clip_vit, damsm, inception_slim
+from tise_tpu_torch.backbones import clip_vit, counter, damsm, inception_slim
 from tise_tpu_torch.backbones.clip_tokenizer import SimpleTokenizer
 from tise_tpu_torch.backbones.detection import predictor, rcnn
 from tise_tpu_torch.backbones.detection import weights as det_weights
@@ -104,11 +121,13 @@ from tise_tpu_torch.backbones.detection.coco_classes import COCO_CLASSES
 from tise_tpu_torch.backbones.inception_v3 import BasicConv2d, InceptionV3, random_state_dict
 from tise_tpu_torch.core import io as result_io
 from tise_tpu_torch.core.config import (IS_STAR_TEMPERATURE_COCO, IS_STAR_TEMPERATURE_CUB, NUM_SPLITS,
-                                        O_IS_TEMPERATURE, PA_SUCCESS_THRESHOLD, configure_precision)
+                                        O_IS_TEMPERATURE, PA_SUCCESS_THRESHOLD, configure_precision,
+                                        tf32_forward)
 from tise_tpu_torch.core.data import BICUBIC, ImageFolderLoader, center_crop_resize, list_images, load_image
-from tise_tpu_torch.metrics import crop_objects, fid, is_star, o_fid, o_is, pa, rp_coco, rp_cub, soa
+from tise_tpu_torch.metrics import ca, crop_objects, fid, is_star, o_fid, o_is, pa, rp_coco, rp_cub, soa
 from tise_tpu_torch.metrics.clip_scorer import ClipPairScorer
 from tise_tpu_torch.ops import fast_pool, native, sqrtm, stats
+from tise_tpu_torch.ranking import ranking_score
 from tise_tpu_torch.ops.fast_pool import avg_pool_kernel, avg_pool_plain
 from tise_tpu_torch.ops.pallas_kernels import (KERNEL_INSTANCES, epilogue_matmul_instance, epilogue_matmul_kernel,
                                                epilogue_matmul_plain, newton_schulz_sqrtm_pallas)
@@ -131,6 +150,7 @@ BATCH = 64
 CUB_BATCH = 32       # rp_cub's default batch: the DAMSM trunk pools at this batch
 NATIVE = 64        # side of the PNGs on disk
 CLIP_SIZE = 224    # CLIP's input side
+CA_SIZE = 448      # the counter's input side
 EDGE_POOL_SHAPES = [(2, 1, 1, 2048), (2, 1, 5, 8), (2, 5, 1, 8)]
 # C not a multiple of 8 (bf16 scalar instance), C not a multiple of 4 (f32 scalar), rows cut into column chunks
 RAGGED_POOL_SHAPES = [(2, 17, 17, 36), (2, 6, 300, 30), (2, 5, 300, 64)]
@@ -229,15 +249,17 @@ def setup() -> str:
 
 
 def normalize_inputs(gen: torch.Generator) -> dict:
-    """K1's inputs: the three main-path shapes (a batch at 299, the
-    device-resize path's native 64 x 64 and CLIP's 224 x 224), a ragged size
+    """K1's inputs: the four main-path shapes (a batch at 299, the
+    device-resize path's native 64 x 64, CLIP's 224 x 224 and CA's batch of
+    32 at 448 x 448), a ragged size
     (n not a multiple of 48 or of a block's 6,144 elements) and an unaligned
     view of it."""
     u8 = torch.randint(0, 256, (BATCH, 299, 299, 3), generator=gen, device="cuda", dtype=torch.uint8)
     ragged = (2, 37, 61, 3)
     flat = torch.randint(0, 256, (torch.Size(ragged).numel() + 1,), generator=gen, device="cuda", dtype=torch.uint8)
+    ca_u8 = torch.randint(0, 256, (CA_BATCH, CA_SIZE, CA_SIZE, 3), generator=gen, device="cuda", dtype=torch.uint8)
     return {"299 px": u8, f"{NATIVE} px": u8[:, :NATIVE, :NATIVE].contiguous(),
-            f"{CLIP_SIZE} px": u8[:, :CLIP_SIZE, :CLIP_SIZE].contiguous(),
+            f"{CLIP_SIZE} px": u8[:, :CLIP_SIZE, :CLIP_SIZE].contiguous(), f"{CA_SIZE} px": ca_u8,
             "ragged": flat[:-1].view(ragged), "unaligned": flat[1:].view(ragged)}
 
 
@@ -253,7 +275,8 @@ def normalize_library_call(recipe: str = "fid", dtype: torch.dtype = torch.float
 
 #: K1's timed cases: (input label, recipe, output dtype)
 NORMALIZE_TIMED = [("299 px", "fid", torch.float32), (f"{NATIVE} px", "fid", torch.float32),
-                   (f"{CLIP_SIZE} px", "clip", torch.float32), (f"{CLIP_SIZE} px", "clip", torch.bfloat16)]
+                   (f"{CLIP_SIZE} px", "clip", torch.float32), (f"{CLIP_SIZE} px", "clip", torch.bfloat16),
+                   (f"{CA_SIZE} px", "imagenet", torch.float32)]
 
 
 def normalize_bytes(x: torch.Tensor, dtype: torch.dtype) -> int:
@@ -1628,6 +1651,19 @@ class _Tee:
         self.out.flush()
 
 
+def run_runner(tag: str, argv: list) -> tuple:
+    """One ``benchmark.main`` run from 0 counts: (values, its stdout, launches, seconds)."""
+    reset_counters()
+    tee = _Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        values = benchmark.main(argv)
+    torch.cuda.synchronize()
+    out = (values, tee.buf.getvalue(), counts(), time.perf_counter() - t0)
+    log(f"[{tag}] {out[3]:.2f} s; launches {out[2]}")
+    return out
+
+
 def path_cub_runner(c: dict, rp_text: str) -> list:
     """``bird_val.npz`` from the reference folder through the FID CLI's
     ``--save_stats``; FID and IS* CUB through their CLIs on the images; then
@@ -1657,15 +1693,7 @@ def path_cub_runner(c: dict, rp_text: str) -> list:
     direct["RP"] = float(rp_text[len("R mean:"):].split()[0]) * 100
     argv = ["--track", "cub", "--method_name", "smoke", "--images", c["images"], "--data_root", c["data"],
             "--weights_root", c["weights"], "--output_root", os.path.join(c["root"], "results")]
-    out = {}
-    for tag, extra in (("run", []), ("resume", ["--resume"])):
-        reset_counters()
-        tee = _Tee(sys.stdout)
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(tee):
-            values = benchmark.main(argv + extra)
-        torch.cuda.synchronize()
-        out[tag] = (values, tee.buf.getvalue(), counts(), time.perf_counter() - t0)
+    out = {tag: run_runner(f"cub runner {tag}", argv + extra) for tag, extra in (("run", []), ("resume", ["--resume"]))}
     values, text, launches, t_run = out["run"]
     per_path.append(launches)
     log(f"[cub runner] {t_run:.2f} s; values {values} against the CLIs' {direct}; launches {launches}")
@@ -2117,6 +2145,365 @@ def det_timings(c: dict) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# 8. the counter and CA: FC-ResNet50 PRM at 448 px
+# ---------------------------------------------------------------------------
+
+N_CA = 1024               # CA items, one 256 x 256 PNG each
+CA_BATCH = 32             # the CA CLI's default batch
+CA_CALIBRATION = 32       # images the counter's classifier is calibrated on
+CA_FAIL_ON = 11           # the killed CA run fails on this batch, after its first snapshot (at item 288)
+CA_COUNT_SPREAD = 0.5     # the std over images of a class's density mean, in counts
+
+
+def ca_image(i: int) -> np.ndarray:
+    """Seeded CA image i: det_image's blobs on noise, 256 x 256."""
+    return det_image(20000 + i)
+
+
+def counter_input(u8: np.ndarray) -> torch.Tensor:
+    """uint8 [B, 448, 448, 3] -> the counter's normalized NCHW input on the card (K1), as CountingEngine makes it."""
+    return normalize_kernel(torch.from_numpy(u8).cuda(), "imagenet").permute(0, 3, 1, 2).contiguous()
+
+
+def calibrated_counter_weights(sd: dict, u8: np.ndarray, seed: int = 0) -> dict:
+    """``sd`` (CountSeg layout) with its classifier rebuilt from the card's
+    ``res5`` features of ``u8`` (a data-dependent init, as
+    calibrated_detector_weights does for the detector).
+
+    The raw random classifier gives each class nearly the same maps on every
+    image: counts vary from class to class but hardly from image to image,
+    and a CA of such counts says little about the trunk.  Here each class's
+    class-response and density maps are seeded random combinations of the 8
+    principal directions of the images' spatially averaged ``res5`` (the
+    directions in which the images differ most, so that TF32's rounding
+    moves them least), the density's spatial mean spread over the images
+    with a standard deviation of CA_COUNT_SPREAD counts around an offset
+    drawn from [1, 4], and the class-response bias set so that the gate
+    opens on 60% of the images (peak stimulation's confidence moves one for
+    one with a constant added to the map).  The third block of 80 maps,
+    which CA does not read, keeps its random weights."""
+    sd = dict(sd)
+    model = counter.FCResNet50PRM.from_state_dict(counter.state_dict_from_countseg(sd), "cuda")
+    with torch.inference_mode():
+        f = torch.cat([model.backbone(counter_input(u8[i:i + CA_BATCH]))["res5"].double()
+                       for i in range(0, len(u8), CA_BATCH)])
+    g = f.mean(dim=(2, 3))
+    gbar = g.mean(0)
+    basis = torch.linalg.svd(g - gbar, full_matrices=False).Vh[:8]
+    rng = np.random.RandomState(seed)
+    v = torch.from_numpy(rng.randn(counter.NUM_CLASSES, len(basis))).to(g) @ basis
+    v *= CA_COUNT_SPREAD / ((g - gbar) @ v.T).std(0)[:, None]
+    den_bias = torch.from_numpy(rng.uniform(1.0, 4.0, counter.NUM_CLASSES)).to(g) - v @ gbar
+    w = torch.from_numpy(rng.randn(counter.NUM_CLASSES, len(basis))).to(g) @ basis
+    w /= torch.einsum("ck,nkhw->nchw", w, f).std(dim=(0, 2, 3))[:, None]
+    conf0, _ = counter.peak_stimulation(torch.einsum("ck,nkhw->nchw", w, f).float())
+    crm_bias = -torch.quantile(conf0.double(), 0.4, dim=0)
+    weight, bias = sd["classifier.weight"].copy(), sd["classifier.bias"].copy()
+    n = counter.NUM_CLASSES
+    weight[:n, :, 0, 0], bias[:n] = w.float().cpu().numpy(), crm_bias.float().cpu().numpy()
+    weight[n:2 * n, :, 0, 0], bias[n:2 * n] = v.float().cpu().numpy(), den_bias.float().cpu().numpy()
+    sd["classifier.weight"], sd["classifier.bias"] = weight, bias
+    model = counter.FCResNet50PRM.from_state_dict(counter.state_dict_from_countseg(sd), "cuda")
+    with torch.inference_mode():
+        conf, density = model(counter_input(u8[:CA_BATCH]))
+    counts = counter.predict_counts(conf.cpu().numpy(), density.cpu().numpy())
+    log(f"[ca data] classifier calibrated on {len(u8)} images: counts on them {np.unique(counts).tolist()}, "
+        f"gate open {float((conf > 0).float().mean()):.3f}, mean count {counts.mean():.3f}")
+    return sd
+
+
+def make_ca_data() -> dict:
+    """N_CA seeded 256 x 256 PNGs named ``<caption_id>.png``, CA items of
+    1-3 classes with counts 1-5, and seeded CountSeg-layout weights whose
+    classifier is calibrated on the first 32 images, saved with torch.save
+    as ``coco14.pt``, under build/chip_smoke/ca/."""
+    from PIL import Image
+
+    t0 = time.perf_counter()
+    root = os.path.join(SCRATCH, "ca")
+    images = os.path.join(root, "images")
+    os.makedirs(images)
+    ids = [f"{500000 + 3 * i}" for i in range(N_CA)]
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda i: Image.fromarray(ca_image(i)).save(os.path.join(images, f"{ids[i]}.png")), range(N_CA)))
+    rng = np.random.RandomState(61)
+    items = [{"caption_id": cid, "counting_info": {COCO_CLASSES[k]: int(rng.randint(1, 6)) for k in
+                                                   rng.choice(len(COCO_CLASSES), rng.randint(1, 4), replace=False)}}
+             for cid in ids]
+    calibration = np.stack([load_image(os.path.join(images, f"{ids[i]}.png"), (ca.IMAGE_SIZE,) * 2)
+                            for i in range(CA_CALIBRATION)])
+    sd = calibrated_counter_weights(counter.random_countseg_state_dict(0), calibration)
+    c = {"root": root, "images": images, "items": items, "pkl": os.path.join(root, "ca_input.pkl"),
+         "weights": os.path.join(root, "coco14.pt")}
+    result_io.save_pickle(c["pkl"], items)
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, c["weights"])
+    log(f"[ca data] {N_CA} PNGs of 256 x 256, {N_CA} items and the seeded CountSeg weights in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return c
+
+
+def check_counter_against_cpu(c: dict) -> None:
+    """(a) The CA CLI's engine on the card (K1, f32, TF32 off) against the
+    same engine on the CPU on 4 images at 448: confidence and density within 1e-4 of
+    each one's scale, and the counts equal wherever the gate and the
+    rounding are 1e-3 clear of their boundaries on the CPU."""
+    state = counter.load_counter_weights(c["weights"])
+    u8 = np.stack([load_image(os.path.join(c["images"], f"{it['caption_id']}.png"), (ca.IMAGE_SIZE,) * 2)
+                   for it in c["items"][:4]])
+    t0 = time.perf_counter()
+    card = [t.cpu() for t in ca.CountingEngine(state, "cuda").dispatch(u8)]
+    cpu = ca.CountingEngine(state, "cpu").dispatch(u8)
+    errs = [float((g - h).abs().max()) / max(float(h.abs().max()), 1e-12) for g, h in zip(card, cpu)]
+    conf, density = (t.numpy() for t in cpu)
+    means = density.mean(axis=(2, 3))
+    clear = (np.abs(conf) > 1e-3) & (np.abs(means - np.floor(means) - 0.5) > 1e-3)
+    got, want = (counter.predict_counts(a.numpy(), b.numpy()) for a, b in (card, cpu))
+    log(f"[ca card vs cpu] confidence and density max_abs_err / scale {errs[0]:.2e}, {errs[1]:.2e}; counts equal on "
+        f"{int((got == want)[clear].sum())} of the {int(clear.sum())} entries clear of a boundary "
+        f"({int((got == want).sum())} of {got.size} in all); the CPU forward and both runs "
+        f"{time.perf_counter() - t0:.1f} s")
+    require(all(e <= 1e-4 for e in errs), f"the counter card vs CPU: {errs}")
+    require(bool((got == want)[clear].all()), "counts card vs CPU where clear of a boundary")
+
+
+def ca_from_counts(items: list, counts: np.ndarray) -> str:
+    """The CA result file recomputed here from per-item counts."""
+    preds = [{COCO_CLASSES[k]: float(v) for k, v in enumerate(row) if v} for row in counts]
+    return f"CA = {float(np.mean([ca.rmse_for_item(p, it['counting_info']) for p, it in zip(preds, items)]))}"
+
+
+def path_ca(c: dict) -> list:
+    """(b) CA through ``ca.main`` on the N_CA items: ``--precision highest``,
+    its result file equal to CA recomputed here from the counts it made
+    (which must take at least 3 values where the gate is open, with the gate
+    both open and shut), K1 once a batch; ``--precision fast`` (TF32 inside
+    the forward), whose counts on the items' classes must equal highest's
+    on at least 99% of the items; then a run that fails on its 11th batch,
+    after its first snapshot, resumed by the same command to the same bytes
+    from the snapshot's cursor."""
+    argv = ["--image_dir", c["images"], "--ct_input_file", c["pkl"], "--weights", c["weights"]]
+    batches = -(-N_CA // CA_BATCH)
+    texts, seen = {}, {}
+    runs = []
+    for tag, extra in (("highest", []), ("fast", ["--precision", "fast"])):
+        saved = os.path.join(c["root"], f"ca_{tag}.txt")
+        with recording(counter, "peak_stimulation") as peaks, recording(counter, "predict_counts") as counted:
+            runs.append(run_cli(f"ca {tag}", ca.main, argv + ["--result_file", saved, *extra], N_CA))
+        with open(saved) as f:
+            texts[tag] = f.read()
+        seen[tag] = (torch.cat([conf for conf, _ in peaks]).cpu().numpy(), np.concatenate(counted))
+        log(f"[ca {tag}] {texts[tag]!r}")
+        require(runs[-1]["launches"]["normalize"] == batches, f"CA {tag}: K1 once a batch of {CA_BATCH}")
+        require(texts[tag] == ca_from_counts(c["items"], seen[tag][1]), f"CA {tag}: the result differs from its counts'")
+    conf, counts = seen["highest"]
+    open_counts = np.unique(counts[conf > 0])
+    log(f"[ca highest] counts where the gate is open {open_counts.tolist()}; gate open on {float((conf > 0).mean()):.3f} "
+        f"of the entries; mean count {counts.mean():.3f}")
+    require(len(open_counts) >= 3 and (conf > 0).any() and (conf <= 0).any(),
+            "the counts must take at least 3 values with the gate open, and the gate must be shut somewhere")
+    classes = [[COCO_CLASSES.index(name) for name in it["counting_info"]] for it in c["items"]]
+    fast_conf, fast = seen["fast"]
+    share = float(np.mean([np.array_equal(counts[i, k], fast[i, k]) for i, k in enumerate(classes)]))
+    log(f"[ca fast] counts on the items' classes equal to highest's on {share:.4f} of the items; "
+        f"{float((counts == fast).mean()):.5f} of all {counts.size} entries equal, the gate on "
+        f"{float(((conf > 0) == (fast_conf > 0)).mean()):.5f}")
+    require(share >= 0.99, f"CA fast agrees with highest on {share} of the items")
+
+    snap = os.path.join(c["root"], "ca.snapshot.npz")
+    saved = os.path.join(c["root"], "ca_resumed.txt")
+    dispatch, calls = ca.CountingEngine.dispatch, []
+
+    def failing(self, images_u8):
+        calls.append(len(images_u8))
+        if len(calls) == CA_FAIL_ON:
+            raise RuntimeError("injected failure")
+        return dispatch(self, images_u8)
+
+    ca.CountingEngine.dispatch = failing
+    try:
+        ca.main(argv + ["--result_file", saved, "--snapshot_file", snap])
+        raise AssertionError("the failing CA run did not fail")
+    except RuntimeError as e:
+        require("injected failure" in str(e), f"the failing CA run failed otherwise: {e}")
+    finally:
+        ca.CountingEngine.dispatch = dispatch
+    with np.load(snap) as z:
+        cursor = int(z["cursor"])
+    resumed = run_cli("ca resumed", ca.main, argv + ["--result_file", saved, "--snapshot_file", snap], N_CA - cursor)
+    with open(saved) as f:
+        text = f.read()
+    log(f"[ca resumed] failed on batch {CA_FAIL_ON} after a snapshot at item {cursor}; resumed: {text!r}")
+    require(cursor == 288 and not os.path.exists(snap), f"the CA snapshot's cursor {cursor}")
+    require(resumed["launches"]["normalize"] == -(-(N_CA - cursor) // CA_BATCH), "the resumed CA run counted again")
+    require(text == texts["highest"], "the resumed CA run's result differs from the straight run's")
+    return [r["launches"] for r in runs] + [resumed["launches"]]
+
+
+def ca_timings(c: dict) -> dict:
+    """Where a CA run's time goes: host decode (open, PIL resize 256 -> 448)
+    of 256 PNGs on 8 threads; per batch of 32 on the device by events, the
+    counter's forward in f32 (NCHW and channels last) and under TF32, peak
+    stimulation alone on [32, 80, 14, 14], K1 under ``imagenet``; beside the
+    convolutions' operations over the f32 peak.  Returns what the device
+    times need."""
+    files = [os.path.join(c["images"], f"{it['caption_id']}.png") for it in c["items"][:256]]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        u8 = np.stack(list(pool.map(lambda f: load_image(f, (ca.IMAGE_SIZE,) * 2), files)))
+    decode = len(files) / (time.perf_counter() - t0)
+    model = counter.FCResNet50PRM.from_state_dict(counter.load_counter_weights(c["weights"]), "cuda")
+    with torch.inference_mode():
+        x = counter_input(u8[:CA_BATCH])
+        flops = sum(forward_flops(model, lambda: model(x[:1])).values())
+        ms = {}
+        for name, fmt in (("f32 NCHW", torch.contiguous_format), ("f32 channels last", torch.channels_last)):
+            model.to(memory_format=fmt)
+            xf = x.contiguous(memory_format=fmt)
+            ms[name] = median_ms(lambda: model(xf), reps=5, inner=2, warmup=1)
+        model.to(memory_format=torch.contiguous_format)
+        with tf32_forward(True):
+            ms["TF32 NCHW"] = median_ms(lambda: model(x), reps=5, inner=2, warmup=1)
+        crm = model.classifier(model.backbone(x)["res5"])[:, :counter.NUM_CLASSES].contiguous()
+        ms["peak stimulation"] = median_ms(lambda: counter.peak_stimulation(crm), reps=5, inner=10)
+        u8_dev = torch.from_numpy(u8[:CA_BATCH]).cuda()
+        ms["K1 imagenet"] = median_ms(lambda: normalize_kernel(u8_dev, "imagenet"))
+    least = flops * CA_BATCH / PEAK_F32 * 1e3
+    log(f"[time ca] host decode (open, resize 256 -> 448) {decode:.1f} images/s on 8 threads; per batch of {CA_BATCH} "
+        f"on the device (events): " + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+        + f"; {flops / 1e9:.2f} GFLOP an image, f32 bound {least:.2f} ms ({least / ms['f32 NCHW']:.1%} of NCHW)")
+    return {"model": model, "x": x, "crm": crm, "events_ms": ms, "flops": flops}
+
+
+# ---------------------------------------------------------------------------
+# 9. the COCO track runner: nine stages, the methods JSON and the RS table
+# ---------------------------------------------------------------------------
+
+N_COCO_RUN = 256          # the runner's images: the first CA items'
+#: BASELINE.md's 11 published methods (the reference's COCO table), ranked beside the smoke's
+PUBLISHED = {"GAN-CLS": (8.10, 192.09, 10.00, 5.31, 5.71, 2.46, 51.13, 2.51, 32.79),
+             "StackGAN": (15.50, 53.44, 9.10, 9.24, 9.90, 3.36, 29.09, 2.41, 34.33),
+             "AttnGAN": (33.79, 36.90, 50.56, 47.13, 49.78, 5.04, 20.92, 1.82, 40.08),
+             "DM-GAN": (45.63, 28.96, 66.98, 55.77, 58.11, 5.22, 17.48, 1.71, 42.83),
+             "CPGAN": (59.64, 50.68, 69.08, 81.86, 83.83, 6.38, 20.07, 2.07, 43.28),
+             "DF-GAN": (30.45, 21.05, 42.44, 37.85, 40.19, 5.12, 14.39, 1.96, 40.39),
+             "AttnGAN + CL": (36.85, 26.93, 57.52, 47.45, 49.33, 4.92, 19.92, 1.72, 43.92),
+             "DM-GAN + CL": (46.61, 22.60, 70.36, 58.68, 61.05, 5.09, 15.50, 1.66, 49.06),
+             "DALLE-Mini": (19.82, 62.90, 48.72, 26.64, 27.90, 4.10, 23.83, 2.31, 47.39),
+             "AttnGAN++": (54.63, 26.58, 72.48, 67.83, 69.97, 6.01, 15.43, 1.57, 47.75),
+             "Real-Images": (51.25, 2.62, 83.54, 90.02, 91.19, 8.63, 0.00, 1.05, 100.0)}
+
+
+def make_coco_layout(d: dict, clip: dict, det: dict, cad: dict) -> dict:
+    """The reference's COCO layout under build/chip_smoke/coco/, from the
+    earlier phases' data and weights (hard links): the first 256 CA images
+    and their CA items; RP items for them over the CLIP phase's captions; the
+    PA phase's pickle and phrase folders; the first image of each of SOA's
+    80 label folders; as ``coco_val.npz`` the statistics of path_fid_f32's
+    20,480 images of side a (with 256 images a side both covariances are
+    singular and ``scipy``'s square root of their product comes out complex:
+    the FID CLI refuses it, in the JAX package too) and
+    ``cropped_object_coco.npz`` from crops_b through the O-FID CLI; the FID,
+    crop-calibrated 80-class, CLIP (as the ``.npz`` sibling), merge table
+    (gzipped), detector and counter weights; the IS* COCO trunk of the
+    earlier paths with its head scaled to logits of order 1 on these images
+    (the scale set on 64 x 64 noise saturates the softmax here and IS* comes
+    out NaN); and a methods dir of the 11 published methods."""
+    import gzip
+
+    t0 = time.perf_counter()
+    root = os.path.join(SCRATCH, "coco")
+    data, weights = os.path.join(root, "data"), os.path.join(root, "weights")
+    images, soa_root = os.path.join(root, "images"), os.path.join(root, "soa")
+    os.makedirs(images)
+
+    def place(base: str, rel: str) -> str:
+        path = os.path.join(base, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        return path
+
+    items = cad["items"][:N_COCO_RUN]
+    for it in items:
+        name = f"{it['caption_id']}.png"
+        os.link(os.path.join(cad["images"], name), os.path.join(images, name))
+    for folder in sorted(os.listdir(det["soa"])):
+        os.makedirs(os.path.join(soa_root, folder))
+        os.link(os.path.join(det["soa"], folder, "0.png"), os.path.join(soa_root, folder, "0.png"))
+    rng, caps = np.random.RandomState(51), clip["captions"]
+    rp_items = []
+    for it in items:
+        gt = rng.randint(len(caps))
+        others = rng.randint(len(caps) - 1, size=99)
+        others += others >= gt
+        rp_items.append({"caption_id": it["caption_id"], "caption": caps[gt],
+                         "mismatched_captions": [caps[j] for j in others]})
+    result_io.save_pickle(place(data, benchmark.DATA["coco_rp_captions"]), rp_items)
+    result_io.save_pickle(place(data, benchmark.DATA["ca_captions"]), items)
+    os.link(clip["pa"], place(data, benchmark.DATA["pa_captions"]))
+    w80 = os.path.join(det["root"], "inception80_crops.pth")  # path_crops' crop-calibrated 80-class trunk
+    os.link(os.path.join(SCRATCH, "a.npz"), place(data, benchmark.DATA["coco_fid_stats"]))
+    o_fid.main(["--path1", d["crops_b"], "--save_stats", place(data, benchmark.DATA["o_fid_stats"]), "--weights", w80])
+    for key, src in (("inception", d["weights"]), ("inception_80", w80), ("detector_soa", det["pkl"]),
+                     ("detector_crop", det["pkl"]), ("counter", cad["weights"])):
+        os.link(src, place(weights, benchmark.WEIGHTS[key]))
+    norm = mean_pool3_norm(d["state_is"], np.stack([ca_image(i) for i in range(128)]), "is_star_2015")
+    np.savez(place(weights, benchmark.WEIGHTS["inception_2015"]),
+             **tf_layout_vars(d["state_is"], "2015", seed=22, head_std=1.0 / norm))
+    os.link(clip["weights"], place(weights, os.path.splitext(benchmark.WEIGHTS["clip"])[0] + ".npz"))
+    with open(clip["bpe"], "rb") as f, gzip.open(place(weights, benchmark.WEIGHTS["clip_bpe"]), "wb") as g:
+        g.write(f.read())
+    methods = os.path.join(root, "methods")
+    os.makedirs(methods)
+    for name, vals in PUBLISHED.items():
+        with open(os.path.join(methods, f"{name}.json"), "w") as f:
+            json.dump(dict(zip(ranking_score.METRICS, vals)), f)
+    log(f"[coco layout] {N_COCO_RUN} images and items, {len(os.listdir(soa_root))} SOA folders, both statistics and "
+        f"the weights in {time.perf_counter() - t0:.1f} s")
+    return {"root": root, "images": images, "soa": soa_root, "pa": clip["images"], "data": data, "weights": weights,
+            "methods": methods, "results": os.path.join(root, "results")}
+
+
+def path_coco_runner(lay: dict) -> list:
+    """``benchmark.main(["--track", "coco", ...])`` over the layout: all nine
+    stages run (no FAIL, no SKIP), every value finite, the methods JSON their
+    2-decimal rounding, the RS table the port's ranking of the methods dir
+    with the run among the 11 published methods; then a ``--resume`` that
+    parses all nine and launches nothing; then ``crop.done`` deleted and a
+    ``--resume`` in which crop runs again and so do O-IS and O-FID, to the
+    same values.  Returns the launches of the two runs that ran stages."""
+    argv = ["--track", "coco", "--method_name", "smoke", "--images", lay["images"], "--soa_images", lay["soa"],
+            "--pa_images", lay["pa"], "--data_root", lay["data"], "--weights_root", lay["weights"],
+            "--output_root", lay["results"], "--methods_dir", lay["methods"]]
+    values, text, launches, _ = run_runner("coco runner run", argv)
+    out = os.path.join(lay["results"], "smoke")
+    with open(os.path.join(out, "timings.json")) as f:
+        log(f"[coco runner] values {values}; stage wall-clock (s) {json.load(f)}")
+    require("FAIL" not in text and "SKIP" not in text, "the COCO runner reported a FAIL or a SKIP")
+    require(set(values) == set(ranking_score.METRICS) and all(np.isfinite(v) for v in values.values()),
+            f"the COCO runner's values {values}")
+    with open(os.path.join(lay["methods"], "smoke.json")) as f:
+        require(json.load(f) == {m: round(values[m], 2) for m in ranking_score.METRICS}, "the methods JSON")
+    with open(os.path.join(lay["results"], "benchmark_results.txt")) as f:
+        table = f.read()
+    log("[coco runner] RS table:\n" + table)
+    require(table == ranking_score.render_table(ranking_score.load_method_scores(lay["methods"]))
+            and "| smoke " in table and len(table.splitlines()) == len(PUBLISHED) + 5, "the RS table")
+    require(launches["normalize"] > 0 and launches["avg_pool_3x3_s1_p1"] > 0, "the COCO runner launched K1 and K2")
+    again, text, quiet, _ = run_runner("coco runner --resume", argv + ["--resume"])
+    require(text.count("[benchmark] RESUME") == 9 and "[benchmark] RUN" not in text, "--resume ran a stage again")
+    require(again == values and not any(quiet.values()), "--resume changed a value or launched a kernel")
+    os.remove(os.path.join(out, "crop.done"))
+    again, text, rerun, _ = run_runner("coco runner --resume without crop.done", argv + ["--resume"])
+    ran = [line.split()[2] for line in text.splitlines() if line.startswith("[benchmark] RUN ")]
+    require(ran == ["crop", "o_is", "o_fid"] and "RESUME o_is skipped (upstream re-ran: crop)" in text,
+            f"without crop.done the resumed runner ran {ran}")
+    require(all(again[m] == values[m] for m in values if m not in ("O-IS", "O-FID"))
+            and all(abs(again[m] - values[m]) <= 1e-6 * abs(values[m]) for m in ("O-IS", "O-FID")),
+            f"the rerun of crop, O-IS and O-FID changed a value: {again} against {values}")
+    require(rerun["normalize"] > 0 and rerun["avg_pool_3x3_s1_p1"] > 0, "O-IS and O-FID ran again on the card")
+    return [launches, rerun]
+
+
 L2_BYTES = 50 * 2 ** 20  # the L2 cache of one H100 SXM (NVIDIA's data sheet)
 
 
@@ -2189,6 +2576,36 @@ def cub_device_times(gen: torch.Generator, half: dict, floor_us: float, t: dict)
                 f"by events")
 
 
+def ca_device_times(gen: torch.Generator, floor_us: float, t: dict) -> None:
+    """K1 under ``imagenet`` at CA's f32 [32, 448, 448, 3] on the device
+    (required), read cold: its 96.3 MB do not fit in L2, which is emptied by
+    a 256 MB read before each call as well; beside torch.addcmul's time, its
+    bytes bound and in launch floors.  Then the counter's forward and peak
+    stimulation a batch of 32 on the device, beside their times by events.
+    Run last, with probe_device_times."""
+    x = torch.randint(0, 256, (CA_BATCH, ca.IMAGE_SIZE, ca.IMAGE_SIZE, 3), generator=gen, device="cuda",
+                      dtype=torch.uint8)
+    require(normalize_bytes(x, torch.float32) > L2_BYTES, "K1 at CA's shape fits in L2")
+    flush = torch.zeros(64 * 2 ** 20, device="cuda")  # 256 MB of f32
+    empty = lambda: flush.sum()  # noqa: E731
+    library = normalize_library_call("imagenet")
+    least = bound(normalize_bytes(x, torch.float32))["bound_ms"]
+    cold = cold_device_us(lambda: normalize_kernel(x, "imagenet"), empty)
+    require(cold is not None, f"torch.profiler recorded no K1 kernel at CA's shape in {PROFILE_TRIES} runs")
+    lib_cold = cold_device_us(lambda: library(x), empty)
+    log(f"[K1 normalize] imagenet float32 {list(x.shape)} on the device (torch.profiler), cold (L2 emptied before "
+        f"each call): {against(cold, least)}, {cold / floor_us:.2f} launch floors; torch.addcmul "
+        f"{'not measured' if lib_cold is None else f'{lib_cold / 1e3:.5f} ms'}")
+    del flush
+    with torch.inference_mode():
+        for name, key, fn in (("counter forward", "f32 NCHW", lambda: t["model"](t["x"])),
+                              ("peak stimulation", "peak stimulation", lambda: counter.peak_stimulation(t["crm"]))):
+            us = device_us(fn, calls=4)
+            log(f"[time ca] {name} a batch of {CA_BATCH} on the device (torch.profiler): "
+                f"{'not measured' if us is None else f'{us / 1e3:.3f} ms'} against {t['events_ms'][key]:.3f} ms "
+                f"by events")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     smi = setup()
@@ -2227,6 +2644,15 @@ def main() -> None:
     log(f"[det] K1 and K2 launched on the detector's crops: " + ", ".join(
         f"{tag} {p['normalize']} and {p['avg_pool_3x3_s1_p1']}" for tag, p in zip(("O-IS", "O-FID"), crops[1:])))
     log(f"[det] the detection phase took {time.perf_counter() - t_det:.1f} s")
+    t_ca = time.perf_counter()
+    cad = make_ca_data()
+    check_counter_against_cpu(cad)
+    per_path += path_ca(cad)
+    counter_t = ca_timings(cad)
+    log(f"[ca] the CA phase took {time.perf_counter() - t_ca:.1f} s")
+    t_coco = time.perf_counter()
+    per_path += path_coco_runner(make_coco_layout(d, c, det, cad))
+    log(f"[coco] the COCO runner phase took {time.perf_counter() - t_coco:.1f} s")
     shutil.rmtree(SCRATCH)
     pool_device_times(gen)
     epilogue_device_times(gen)
@@ -2235,6 +2661,7 @@ def main() -> None:
     probe_device_times(floor_us)
     clip_device_times(towers)
     cub_device_times(gen, half, floor_us, encoders)
+    ca_device_times(gen, floor_us, counter_t)
     kernels = []
     for name, (_, route, source, replaces) in KERNELS.items():
         launches = sum(p[name] for p in per_path)

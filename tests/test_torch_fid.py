@@ -286,7 +286,8 @@ def test_stale_snapshot_is_ignored(world, tmp_path):
 
 def test_port_imports_no_jax():
     """No module of the port, nor chip_smoke.py, imports anything of jax,
-    flax or tise_tpu: every module under tise_tpu_torch/ is imported in a
+    flax or tise_tpu, nor pandas or tabulate (the card's machine has
+    neither): every module under tise_tpu_torch/ is imported in a
     fresh interpreter (tools included), and chip_smoke.py is loaded as a
     module without running it."""
     code = (
@@ -301,13 +302,15 @@ def test_port_imports_no_jax():
         "                 'backbones.detection.coco_classes', 'backbones.detection.ops',\n"
         "                 'backbones.detection.resnet_fpn', 'backbones.detection.rcnn',\n"
         "                 'backbones.detection.weights', 'backbones.detection.predictor',\n"
-        "                 'metrics.crop_objects', 'metrics.soa'):\n"
+        "                 'metrics.crop_objects', 'metrics.soa',\n"
+        "                 'backbones.counter', 'metrics.ca', 'ranking.ranking_score'):\n"
         "    assert 'tise_tpu_torch.' + required in names, required\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'tise_tpu')]\n"
+        "banned = ('jax', 'jaxlib', 'flax', 'tise_tpu', 'pandas', 'tabulate')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in banned]\n"
         "assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

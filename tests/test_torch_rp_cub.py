@@ -427,10 +427,18 @@ def test_runner_fails_a_stage_whose_result_has_no_number(stubbed, monkeypatch, c
 
 
 def test_runner_refuses_the_coco_track(tmp_path):
-    with pytest.raises(SystemExit, match="coco is not ported yet: it needs ca, the ranking table, the COCO plan"):
-        tbench.main(["--track", "coco", "--method_name", "m", "--images", "x", "--output_root", str(tmp_path),
-                     "--device", "cpu"])
-    assert not os.path.exists(tmp_path / "m")
+    """The COCO track is refused where there is no card unless ``--device
+    cpu`` is asked for, before anything is written; and a ``--resume`` of it
+    under another ``--proposals`` than its results were made with is
+    refused (the CUB track's refusal under another ``--precision`` is
+    test_runner_resume_refuses_other_flags)."""
+    argv = ["--track", "coco", "--method_name", "m", "--images", "x", "--output_root", str(tmp_path / "out")]
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        tbench.main(argv)
+    assert not os.path.exists(tmp_path / "out")
+    tbench.main(argv + ["--device", "cpu", "--only", "fid"])
+    with pytest.raises(SystemExit, match="resume refused: .*'proposals': \\(1000, 256\\)"):
+        tbench.main(argv + ["--device", "cpu", "--only", "fid", "--resume", "--proposals", "256"])
 
 
 @pytest.fixture(scope="module")

@@ -10,6 +10,7 @@ Byte-identical to the reference formats:
   RP coco  -> ``R-precision: <mean> +- <std>``     (RP_coco.py:90)
   RP cub   -> ``R mean:{:.6f} std:{:.6f}``         (RP_cub.py:162)
   PA       -> ``PA = <float>``                     (PA.py:71)
+  CA       -> ``CA = <float>``                     (CA.py:191)
   SOA      -> three lines                          (SOA.py:209-216)
 Reference statistics are npz archives with ``mu``/``sigma`` arrays
 (fid_score.py:200-203); the RP and PA inputs are pickles.
@@ -69,6 +70,10 @@ def write_pa_result(path: str, pa: float) -> None:
     _write(path, f"PA = {pa}")
 
 
+def write_ca_result(path: str, ca: float) -> None:
+    _write(path, f"CA = {ca}")
+
+
 def write_soa_result(path: str, soa_c: float, soa_i: float, top40: float, bot40: float) -> None:
     text = (
         "Class average accuracy for all classes (SOA-C) is: {:6.4f} \n".format(soa_c)
@@ -113,6 +118,9 @@ read_rp_cub_result = read_is_result
 
 def read_pa_result(path: str) -> float:
     return _floats(path, 1)[0]
+
+
+read_ca_result = read_pa_result
 
 
 def read_soa_result(path: str) -> Tuple[float, float, float, float]:
