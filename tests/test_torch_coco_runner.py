@@ -33,10 +33,13 @@ from tise_tpu.core import io as jio
 from tise_tpu.ranking import ranking_score as jrank
 from tise_tpu_torch import benchmark as tbench
 from tise_tpu_torch.backbones import counter as tcounter
+from tise_tpu_torch.backbones.detection import predictor as tpredictor
 from tise_tpu_torch.core import io as tio
+from tise_tpu_torch.metrics import crop_objects as tcrop
 from tise_tpu_torch.ranking import ranking_score as trank
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CROP_MAIN = tcrop.main  # the real CLI, before the ``stubbed`` fixture replaces it
 
 #: BASELINE.md:31-42, the reference's COCO table (the golden file's row order)
 PUBLISHED = OrderedDict((row[0], row[1:]) for row in [
@@ -284,6 +287,48 @@ def test_runner_resume_parses_every_stage(stubbed):
     os.rename(stubbed["root"] / "results_torch", stubbed["root"] / "results")
     again = _run_both(stubbed, ["--resume"], fresh=False)
     assert again["torch"]["calls"] == [] and again["torch"]["values"] == both["torch"]["values"]
+
+
+class OneBoxDetector:
+    """One box of ``class_id`` an image; raises on every call when ``fails``."""
+
+    def __init__(self, class_id, fails=False):
+        self.class_id, self.fails, self.nms_rounds = class_id, fails, []
+
+    def __call__(self, files):
+        if self.fails:
+            raise RuntimeError("the card was lost")
+        return {f: (["?"], [self.class_id], [np.asarray([2.0, 2.0, 20.0, 18.0], np.float32)]) for f in files}
+
+
+def test_runner_crop_afresh_leaves_only_its_own_crops(stubbed, monkeypatch):
+    """Two crop runs of the port's runner with detectors of different classes
+    leave only the second run's crops, a failed third run leaves no
+    ``crop.done``, and its ``--resume`` crops again.  (The JAX runner keeps
+    the first run's crops and the stale ``crop.done``.)"""
+    from PIL import Image
+
+    rng = np.random.RandomState(0)
+    for i in range(3):
+        Image.fromarray(rng.randint(0, 256, (32, 32, 3)).astype(np.uint8)).save(stubbed["root"] / "gen" / f"g{i}.png")
+    (stubbed["out"] / "crops").mkdir(parents=True)
+    (stubbed["out"] / "crops" / "notes.txt").write_text("not a crop")
+    monkeypatch.setattr(sys.modules["tise_tpu_torch.metrics.crop_objects"], "main", CROP_MAIN)
+    argv = stubbed["argv"] + ["--only", "crop", "--device", "cpu"]
+    crops = stubbed["out"] / "crops"
+    for class_id, name in ((0, "person"), (1, "bicycle")):
+        monkeypatch.setattr(tpredictor, "make_folder_detector", lambda *a, c=class_id, **k: OneBoxDetector(c))
+        tbench.main(argv)
+        assert sorted(os.listdir(crops)) == sorted([f"g{i}_{name}_{i}.png" for i in range(3)] + ["notes.txt"])
+        assert (stubbed["out"] / "crop.done").exists()
+    monkeypatch.setattr(tpredictor, "make_folder_detector", lambda *a, **k: OneBoxDetector(2, fails=True))
+    tbench.main(argv)
+    assert not (stubbed["out"] / "crop.done").exists()
+    assert os.listdir(crops) == ["notes.txt"]
+    monkeypatch.setattr(tpredictor, "make_folder_detector", lambda *a, **k: OneBoxDetector(2))
+    tbench.main(argv + ["--resume"])
+    assert sorted(os.listdir(crops)) == sorted([f"g{i}_car_{i}.png" for i in range(3)] + ["notes.txt"])
+    assert (stubbed["out"] / "crop.done").exists()
 
 
 # ---------------------------------------------------------------------------

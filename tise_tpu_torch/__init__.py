@@ -13,8 +13,11 @@ PA, RP-CUB, the object crop step, SOA and CA (``python -m
 tise_tpu_torch.metrics.{fid,o_fid,is_star,o_is,rp_coco,pa,rp_cub,crop_objects,
 soa,ca}``), the ranking table (``python -m
 tise_tpu_torch.ranking.ranking_score``), both track runners (``python -m
-tise_tpu_torch.benchmark --track coco|cub``) and the two probe entry points.
-This package never imports ``jax`` or ``tise_tpu``, nor pandas or tabulate.
+tise_tpu_torch.benchmark --track coco|cub``), the two probe entry points, the
+image-generation path (``python -m tise_tpu_torch.models.{generate,gen_example}``
+with the AttnGAN++ and CounterModel generators), the calibration CLI
+(``python -m tise_tpu_torch.calibration.cli``) and the download layer
+(``python -m tise_tpu_torch.core.download``).  This package never imports ``jax`` or ``tise_tpu``, nor pandas or tabulate.
 """
 
 __version__ = "0.1.0"

@@ -211,6 +211,11 @@ def _coco_plan(args, out: str) -> Plan:
     ))
 
     def run_crop() -> None:
+        # a run's crop.done says its crops are whole; the crop CLI removes the
+        # old crops unless it resumes, so the old sentinel goes first (the JAX
+        # runner keeps both)
+        if os.path.exists(crop_done):
+            os.remove(crop_done)
         crop_objects.main(["--source_image_dir", args.images, "--saved_cropped_object_dir", crops_dir,
                            "--weights", w("detector_crop")] + prec + det + dev)
         # the sentinel of a finished run: a killed run leaves a partial crops dir, which --resume must not trust

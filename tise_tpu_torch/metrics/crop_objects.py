@@ -45,21 +45,30 @@ def crop_folder(
     package's name and format) records the cursor and the running index, so
     a killed run resumes at the slab it was in and writes the same names
     (the index restarts at the slab's start: a torn slab is overwritten, not
-    duplicated).  The sentinel goes when the folder is done."""
+    duplicated).  The sentinel goes when the folder is done.
+
+    A run that does not resume first removes the crops an earlier run of
+    these sources left in ``dest_dir`` (``<stem>_<class>_<n>.png``): other
+    detections write other names, and O-IS and O-FID read the whole
+    folder.  The JAX CLI keeps them."""
     files = [os.path.join(src_dir, f) for f in sorted(os.listdir(src_dir))]
     os.makedirs(dest_dir, exist_ok=True)
     count = written = start = 0
     fingerprint = hashlib.sha256(("\0".join(files) + "|1").encode()).hexdigest()
     prog_path = os.path.join(dest_dir, ".crop_progress_0.json")
+    resuming = False
     if progress and os.path.exists(prog_path):
         try:
             with open(prog_path) as f:
                 st = json.load(f)
             if st.get("fingerprint") == fingerprint:
                 start, count, written = st["start"], st["count"], st["written"]
+                resuming = True
                 print(f"[crop_objects] resuming at file {start}/{len(files)}", flush=True)
         except (OSError, ValueError, KeyError):  # a torn sentinel: start over
             pass
+    if not resuming:
+        remove_earlier_crops(dest_dir, files, class_names)
 
     while start < len(files):
         slab_files = files[start: start + slab]
@@ -88,6 +97,19 @@ def crop_folder(
     if progress and os.path.exists(prog_path):
         os.remove(prog_path)
     return written
+
+
+def remove_earlier_crops(dest_dir: str, files: Sequence[str], class_names: Sequence[str]) -> None:
+    """Remove every ``<stem>_<class>_<n>.png`` of ``dest_dir`` whose stem is
+    one of ``files``' and whose class is one of ``class_names``; other files
+    are left alone."""
+    stems = {os.path.basename(path).split(".")[0] for path in files}
+    for name in os.listdir(dest_dir):
+        head, _, tail = name.rpartition("_")
+        if not (tail.endswith(".png") and tail[:-4].isdigit()):
+            continue
+        if any(head.endswith("_" + c) and head[:-len(c) - 1] in stems for c in class_names):
+            os.remove(os.path.join(dest_dir, name))
 
 
 def add_detector_flags(p: argparse.ArgumentParser) -> None:

@@ -1,0 +1,156 @@
+"""Generator weights: the JAX package's params carried across, seeded ones,
+and the strict load (the generator side of tise_tpu/models/generate.py's
+checkpoint handling).
+
+The port's generators keep the Flax module names, so a Flax path maps to a
+state-dict key by three renames: ``Conv_i`` -> ``conv{i}``,
+``SyncBatchNorm_0`` -> ``bn``, and the ``bn`` inside each ``SyncBatchNorm``
+wrapper is dropped (``up1/SyncBatchNorm_0/bn/scale`` ->
+``up1.bn.weight``, ``res0/bn1/bn/mean`` -> ``res0.bn1.running_mean``).
+Conv kernels go from HWIO to OIHW, dense kernels from [in, out] to
+[out, in].  Loading is strict: a tree made for another ``r_num``, branch
+count or width raises and names the keys that do not fit (the JAX CLIs
+apply a Flax module to any tree whose used leaves fit, so an ``r_num=3``
+checkpoint silently loses a residual block a stage under their
+``r_num=2``).
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from tise_tpu_torch.core.config import resolve_device
+from tise_tpu_torch.models.attngan_pp.generator import GanConfig, GNet
+from tise_tpu_torch.models.counter_model.generator import CounterGNet
+
+GENERATORS = {"attngan_pp": GNet, "counter_model": CounterGNet}
+_BN_LEAVES = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+
+
+def make_generator(model: str, cfg: GanConfig) -> nn.Module:
+    if model not in GENERATORS:
+        raise ValueError(f"unknown generator {model!r}; one of {sorted(GENERATORS)}")
+    return GENERATORS[model](cfg)
+
+
+def _torch_segment(seg: str) -> str:
+    if seg == "SyncBatchNorm_0":
+        return "bn"
+    return re.sub(r"^Conv_(\d+)$", r"conv\1", seg)
+
+
+def _jax_segment(seg: str) -> str:
+    if seg == "bn":
+        return "SyncBatchNorm_0"
+    return re.sub(r"^conv(\d+)$", r"Conv_\1", seg)
+
+
+def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
+    for k in sorted(tree):
+        if isinstance(tree[k], Mapping):
+            yield from _leaves(tree[k], prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(tree[k])
+
+
+def g_state_dict_from_jax_params(params: Mapping[str, Any], batch_stats: Mapping[str, Any],
+                                 model: str = "attngan_pp") -> Dict[str, np.ndarray]:
+    """A JAX ``GNet``/``CounterGNet`` params tree and its ``batch_stats``
+    (numpy leaves, as ``load_pytree_npz`` gives them) -> the port's state
+    dict for ``model``.  Keys are not checked here: the strict load does."""
+    if model not in GENERATORS:
+        raise ValueError(f"unknown generator {model!r}; one of {sorted(GENERATORS)}")
+    params = params.get("params", params)
+    batch_stats = batch_stats.get("batch_stats", batch_stats)
+    out: Dict[str, np.ndarray] = {}
+    for tree in (params, batch_stats):
+        for path, v in _leaves(tree):
+            *mods, leaf = path
+            if mods and mods[-1] == "bn":  # the nn.BatchNorm inside a SyncBatchNorm
+                key = ".".join(_torch_segment(s) for s in mods[:-1])
+                out[f"{key}.{_BN_LEAVES[leaf]}"] = v.astype(np.float32)
+                out.setdefault(f"{key}.num_batches_tracked", np.zeros((), np.int64))
+                continue
+            key = ".".join(_torch_segment(s) for s in mods)
+            if leaf == "kernel":
+                v = np.transpose(v, (3, 2, 0, 1)) if v.ndim == 4 else v.T
+                leaf = "weight"
+            out[f"{key}.{leaf}"] = np.ascontiguousarray(v, np.float32)
+    return out
+
+
+def jax_params_from_g_state_dict(state: Mapping[str, Any]) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """The inverse: a state dict -> (params, batch_stats) in the JAX tree's
+    layout, numpy leaves (for writing the JAX package's ``.npz``)."""
+    state = {k: np.asarray(v) for k, v in state.items()}
+    bns = {k[:-len(".running_mean")] for k in state if k.endswith(".running_mean")}
+    params: Dict[str, Any] = {}
+    batch_stats: Dict[str, Any] = {}
+    for key, v in state.items():
+        prefix, leaf = key.rsplit(".", 1)
+        if leaf == "num_batches_tracked":
+            continue
+        path = [_jax_segment(s) for s in prefix.split(".")]
+        if prefix in bns:
+            name = {v_: k_ for k_, v_ in _BN_LEAVES.items()}[leaf]
+            tree, path = (batch_stats if leaf.startswith("running_") else params), path + ["bn"]
+        else:
+            name = "kernel" if leaf == "weight" else leaf
+            if name == "kernel":
+                v = np.transpose(v, (2, 3, 1, 0)) if v.ndim == 4 else v.T
+            tree = params
+        node = tree
+        for seg in path:
+            node = node.setdefault(seg, {})
+        node[name] = np.ascontiguousarray(v, np.float32)
+    return params, batch_stats
+
+
+def flatten_tree(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+    """{'a': {'b': x}} -> {'a/b': x}, the JAX package's ``.npz`` keys."""
+    return {prefix + "/".join(path): v for path, v in _leaves(tree)}
+
+
+def save_generator_npz(path: str, state: Mapping[str, Any]) -> None:
+    """A generator checkpoint in the JAX package's ``.npz`` layout: the
+    params under ``g_ema`` and the running statistics under
+    ``g_batch_stats``, as ``generate.load_generator_from_checkpoint`` (and
+    the JAX CLIs) read it."""
+    params, batch_stats = jax_params_from_g_state_dict(state)
+    np.savez(path, **flatten_tree(params, "g_ema/"), **flatten_tree(batch_stats, "g_batch_stats/"))
+
+
+def random_g_state_dict(seed: int, cfg: GanConfig, model: str = "attngan_pp") -> Dict[str, np.ndarray]:
+    """Seeded generator weights made with numpy: every conv and dense weight
+    normal with std 1/sqrt(fan in) (the variance of Flax's lecun_normal),
+    biases zero, BatchNorm scale 1, shift 0, running moments 0 and 1."""
+    with torch.device("meta"):
+        shapes = {k: tuple(v.shape) for k, v in make_generator(model, cfg).state_dict().items()}
+    bns = {k[:-len(".running_mean")] for k in shapes if k.endswith(".running_mean")}
+    rng = np.random.RandomState(seed)
+    out: Dict[str, np.ndarray] = {}
+    for key, shape in shapes.items():
+        prefix, leaf = key.rsplit(".", 1)
+        if leaf == "num_batches_tracked":
+            out[key] = np.zeros((), np.int64)
+        elif prefix in bns:
+            out[key] = (np.ones if leaf in ("weight", "running_var") else np.zeros)(shape, np.float32)
+        elif leaf == "weight":
+            out[key] = (rng.standard_normal(shape) / np.sqrt(np.prod(shape[1:]))).astype(np.float32)
+        else:
+            out[key] = np.zeros(shape, np.float32)
+    return out
+
+
+def load_generator(state: Mapping[str, Any], cfg: GanConfig, model: str = "attngan_pp", device=None) -> nn.Module:
+    """An eval-mode generator on ``device`` (``None`` is the card, and raises
+    where there is none) holding ``state``, loaded strictly."""
+    device = resolve_device(device)
+    net = make_generator(model, cfg)
+    net.load_state_dict({k: torch.tensor(np.asarray(v)) for k, v in state.items()}, strict=True)
+    return net.eval().to(device)
