@@ -79,7 +79,19 @@ of CLIP ViT-B/32 at 224 x 224:
     folders through the f32 FID (against each other) and IS* COCO CLIs,
     with K1 and K2 counted; gen_bench's chain at batch 64 by events and on
     the device beside its operations; and one ``calibration.cli`` run on
-    seeded logits with a planted temperature.
+    seeded logits with a planted temperature;
+  * AttnGAN++ training: K2's backward against autograd of its plain version
+    at the DAMSM trunk's six pool shapes at batch 64 (f32 and bf16, both
+    count modes); the DAMSM image encoder's input gradient through K2 and
+    its backward against the same with the plain pools on the card; one
+    train step at gf 16, batch 4 on the card against the CPU, refereed by a
+    float64 CPU step; ``models.main`` at the published COCO width (gf 64,
+    df 32, R_NUM 3, 256 px, batch 64) over a layout of 256 seeded JPEGs with
+    captions of the COCO-size vocabulary and the seeded DAMSM encoders as
+    ``.pth`` files: 2 epochs with a snapshot each and a resume for a third,
+    then the generate CLI on the EMA ``.npz``, in f32 and under
+    ``--encoder_precision fast``; the step's time by events and on the
+    device, its operations, peak memory and the host's wait for data.
 
 Launch counters, set to 0 before each path and read after it, show that each
 path ran its kernels.  K1 is held to its plain version bit for bit in every
@@ -125,7 +137,7 @@ import numpy as np
 import torch
 
 from tise_tpu_torch import benchmark
-from tise_tpu_torch.backbones import clip_vit, counter, damsm, inception_slim
+from tise_tpu_torch.backbones import clip_vit, counter, damsm, inception_slim, inception_v3
 from tise_tpu_torch.backbones.clip_tokenizer import SimpleTokenizer
 from tise_tpu_torch.backbones.detection import predictor, rcnn
 from tise_tpu_torch.backbones.detection import weights as det_weights
@@ -140,11 +152,14 @@ from tise_tpu_torch.core.data import BICUBIC, ImageFolderLoader, center_crop_res
 from tise_tpu_torch.metrics import ca, crop_objects, fid, is_star, o_fid, o_is, pa, rp_coco, rp_cub, soa
 from tise_tpu_torch.metrics.clip_scorer import ClipPairScorer
 from tise_tpu_torch.models import gen_bench, gen_example, generate
+from tise_tpu_torch.models import main as train_main
 from tise_tpu_torch.models import weights as g_weights
+from tise_tpu_torch.models.attngan_pp import trainer
 from tise_tpu_torch.models.attngan_pp.generator import GanConfig
 from tise_tpu_torch.ops import fast_pool, native, sqrtm, stats
 from tise_tpu_torch.ranking import ranking_score
-from tise_tpu_torch.ops.fast_pool import avg_pool_kernel, avg_pool_plain
+from tise_tpu_torch.ops.fast_pool import (avg_pool_backward_kernel, avg_pool_backward_plain, avg_pool_kernel,
+                                          avg_pool_plain)
 from tise_tpu_torch.ops.pallas_kernels import (KERNEL_INSTANCES, epilogue_matmul_instance, epilogue_matmul_kernel,
                                                epilogue_matmul_plain, newton_schulz_sqrtm_pallas)
 from tise_tpu_torch.ops.preprocess import RECIPES, normalize_kernel, normalize_plain, resize_and_normalize
@@ -180,6 +195,9 @@ KERNELS = {  # name -> (launch counter owner, route, source, TPU kernel it repla
     "normalize": (normalize_kernel, "cuda", "tise_tpu_torch/csrc/normalize.cu", "tise_tpu/ops/preprocess.py:82"),
     "avg_pool_3x3_s1_p1": (avg_pool_kernel, "cuda", "tise_tpu_torch/csrc/avg_pool3x3.cu",
                            "tise_tpu/ops/fast_pool.py:49"),
+    # K2's backward (its adjoint mode where the padding is not counted); the Pallas pool has none
+    "avg_pool_3x3_s1_p1_backward": (avg_pool_backward_kernel, "cuda", "tise_tpu_torch/csrc/avg_pool3x3.cu",
+                                    "tise_tpu/ops/fast_pool.py:49"),
     "epilogue_matmul": (epilogue_matmul_kernel, "cuda", "tise_tpu_torch/csrc/epilogue_matmul.cu",
                         "tise_tpu/ops/pallas_kernels.py:32"),
     "lane_split": (mosaic_probe.lane_split_kernel, "cuda", _PROBE_SRC, "tools/mosaic_probe.py:51"),
@@ -2836,6 +2854,409 @@ def path_calibration(g: dict) -> None:
     require(abs(t - 0.8) < 0.016 and len(lines) == 3 + 2 * 18, f"the fitted temperature {t}")
 
 
+# ---------------------------------------------------------------------------
+# 11. training
+# ---------------------------------------------------------------------------
+
+N_TRAIN = 256             # images of the training layout, 280-330 px JPEGs
+TRAIN_CAPS = 5            # captions an image (--caps_per_img)
+TRAIN_BATCH = 64
+N_TRAIN_GEN = 64          # captions the generate CLI draws from each run's EMA snapshot
+#: the published COCO model's width (tools/train_bench.py:5-8,54-55): gf 64, df 32, R_NUM 3, embedding 256,
+#: 20 words, three branches (64/128/256 px), batch 64
+TRAIN_GAN = GanConfig(gf_dim=64, df_dim=32, r_num=3, embedding_dim=256, words_num=20)
+TRAIN_ARGV = ["--gf_dim", "64", "--df_dim", "32", "--num_residual", "3", "--text_emb_dim", "256", "--words_num", "20",
+              "--batch_size", str(TRAIN_BATCH), "--caps_per_img", str(TRAIN_CAPS), "--snapshot_interval", "1",
+              "--num_workers", "8", "--device", "cuda"]
+#: the card-against-CPU step's width (the encoders keep their full width)
+CHECK_GAN = GanConfig(gf_dim=16, df_dim=16, r_num=3, embedding_dim=256, words_num=20)
+CHECK_BATCH = 4
+ENCODER_CHECK_BATCH = 8
+
+
+def pool2d_backward(grad: torch.Tensor):
+    """-> a call of F.avg_pool2d's autograd backward (3x3, stride 1, pad 1,
+    padding counted) on NCHW ``grad``, through a graph built once in
+    ``grad``'s memory format: the library's backward of the pool."""
+    x = torch.zeros_like(grad, requires_grad=True)
+    y = torch.nn.functional.avg_pool2d(x, 3, 1, 1)
+    return lambda: torch.autograd.grad(y, x, grad, retain_graph=True)[0]
+
+
+def check_pool_backward(gen: torch.Generator) -> dict:
+    """(a) K2's backward against its plain version (autograd through
+    avg_pool_plain) at the DAMSM trunk's six pool shapes at batch 64, f32
+    and bf16, both count modes: within 1e-6 of the gradient's largest
+    magnitude in f32 (sums in another order) and one bf16 rounding of it
+    (2^-7) in bf16; a gradient that arrives as a channels_last NCHW view is
+    taken as is.  Then the nine pools' backward of one trunk batch by
+    events against their bytes bound (one read of the gradient, one write),
+    the plain version and F.avg_pool2d's autograd backward on a contiguous
+    NCHW copy of the gradient (the same function to f32 rounding; on the
+    channels_last gradient itself its error is printed)."""
+    max_err, ms, plain_ms, library_ms, nbytes = 0.0, 0.0, 0.0, 0.0, 0
+    for shape, per_batch in POOL_SHAPES:
+        g = torch.randn(shape, generator=gen, device="cuda")
+        scale = float(g.abs().max())
+        for include_pad in (True, False):
+            for dtype, tol in ((torch.float32, 1e-6), (torch.bfloat16, 2.0 ** -7)):
+                gi = g.to(dtype)
+                got, ref = avg_pool_backward_kernel(gi, include_pad), avg_pool_backward_plain(gi, include_pad)
+                torch.cuda.synchronize()
+                err = float((got.float() - ref.float()).abs().max())
+                log(f"[K2 backward] {str(shape):22s} include_pad={include_pad!s:5s} {str(dtype):15s} "
+                    f"max_abs_err {err:.3e} (tolerance {tol * scale:.3e})")
+                require(got.dtype == dtype and err <= tol * scale, f"K2 backward {shape} {include_pad} {dtype}: {err}")
+                if dtype == torch.float32:
+                    max_err = max(max_err, err)
+        copies = avg_pool_backward_kernel.copies
+        nchw = g.permute(0, 3, 1, 2)  # a channels_last NCHW view: its NHWC permute is contiguous
+        require(torch.equal(avg_pool_backward_kernel(nchw.permute(0, 2, 3, 1), True), avg_pool_backward_kernel(g, True))
+                and avg_pool_backward_kernel.copies == copies, "K2 backward copied a contiguous NHWC view")
+        k = median_ms(lambda: avg_pool_backward_kernel(g, True))
+        p = median_ms(lambda: avg_pool_backward_plain(g, True))
+        # F.avg_pool2d's backward on this channels_last gradient disagrees with the adjoint (logged, not
+        # required); on a contiguous NCHW copy (made outside the timing) it agrees, and that call is timed
+        lib_err_cl = float((pool2d_backward(nchw)().permute(0, 2, 3, 1) - avg_pool_backward_kernel(g, True)).abs().max())
+        lib_call = pool2d_backward(nchw.contiguous())
+        lib_err = float((lib_call().permute(0, 2, 3, 1) - avg_pool_backward_kernel(g, True)).abs().max())
+        require(lib_err <= 1e-6 * scale, f"K2 backward {shape} vs F.avg_pool2d's backward on NCHW: {lib_err}")
+        lib = median_ms(lib_call)
+        least = bound(2 * g.numel() * 4)["bound_ms"]
+        log(f"[K2 backward] {str(shape):22s} f32: kernel {k:.4f} ms, bound {least:.4f} ms ({least / k:.1%} of it), "
+            f"plain {p:.4f} ms, F.avg_pool2d's backward on contiguous NCHW {lib:.4f} ms (max_abs_err {lib_err:.2e}; "
+            f"on the channels_last gradient {lib_err_cl:.2e}) (x{per_batch} per batch)")
+        ms += per_batch * k
+        plain_ms += per_batch * p
+        library_ms += per_batch * lib
+        nbytes += per_batch * 2 * g.numel() * 4
+    least = bound(nbytes)["bound_ms"]
+    log(f"[K2 backward] the nine pools' backward of one trunk batch of {BATCH}: kernel {ms:.4f} ms against a bound of "
+        f"{least:.4f} ms ({least / ms:.1%} of it), plain {plain_ms:.4f} ms, F.avg_pool2d's backward {library_ms:.4f} ms")
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **bound(nbytes)}
+
+
+def encoder_input_grad(encoder, x: torch.Tensor, r1: torch.Tensor, r2: torch.Tensor) -> torch.Tensor:
+    xt = x.clone().requires_grad_()
+    region, code = encoder.encode(xt)
+    ((region.float() * r1).sum() + (code.float() * r2).sum()).backward()
+    return xt.grad.double()
+
+
+def check_encoder_gradient(t: dict) -> None:
+    """(b) The DAMSM image encoder's gradient with respect to its input (a
+    weighted sum of the region features and the code, 8 seeded 256 px
+    images, TF32 off) on the card through K2 and its backward, against the
+    same computation with the pools' plain version on the card, for the f32
+    encoder and its bf16 copy (``--encoder_precision fast``).  K2's forward
+    is bit-equal to the plain version, so only the backward's rounding
+    separates them: within 1e-3 in L2 norm in f32 and 1e-1 in bf16 (a bf16
+    rounding that flips moves the rest of a random-weight trunk's bf16
+    backward: 1.8% measured).  A K2 outside autograd drops the pool
+    branches' share of the gradient, 44% of it (on the CPU).  The bf16 gradient's cosine with the f32 one is
+    printed: a random-weight trunk's max pools and ReLUs switch under bf16
+    rounding."""
+    enc = damsm.CNNEncoder.from_state_dict(t["image_state"], device="cuda").requires_grad_(False)
+    rng = np.random.RandomState(80)
+    x = torch.from_numpy(rng.uniform(-1, 1, (ENCODER_CHECK_BATCH, 256, 256, 3)).astype(np.float32)).cuda()
+    r1 = torch.from_numpy(rng.standard_normal((ENCODER_CHECK_BATCH, 17, 17, 256)).astype(np.float32)).cuda()
+    r2 = torch.from_numpy(rng.standard_normal((ENCODER_CHECK_BATCH, 256)).astype(np.float32)).cuda()
+    grads = {}
+    for precision, model, tol in (("f32", enc, 1e-3), ("bf16", enc.bf16_copy(), 1e-1)):
+        reset_counters()
+        avg_pool_backward_kernel.copies = 0
+        card = encoder_input_grad(model, x, r1, r2)
+        launches, copies = counts(), avg_pool_backward_kernel.copies
+        kernel_route = inception_v3.avg_pool_3x3_s1_p1
+        inception_v3.avg_pool_3x3_s1_p1 = avg_pool_plain
+        try:
+            plain = encoder_input_grad(model, x, r1, r2)
+        finally:
+            inception_v3.avg_pool_3x3_s1_p1 = kernel_route
+        require(counts()["avg_pool_3x3_s1_p1"] == launches["avg_pool_3x3_s1_p1"], "the plain route launched K2")
+        rel = float((card - plain).norm() / plain.norm())
+        log(f"[train encoder gradient] {precision}: card through K2 vs the plain pools on the card: L2 {rel:.3e} "
+            f"(tolerance {tol}); K2 launches {launches['avg_pool_3x3_s1_p1']}, its backward "
+            f"{launches['avg_pool_3x3_s1_p1_backward']}, gradient copies {copies}")
+        require(launches["avg_pool_3x3_s1_p1"] == 9 and launches["avg_pool_3x3_s1_p1_backward"] == 9,
+                f"the encoder's pools and their backward ran K2 once each: {launches}")
+        require(np.isfinite(rel) and rel <= tol, f"the {precision} encoder's input gradient through K2: L2 {rel}")
+        grads[precision] = card
+    cos = float((grads["bf16"] * grads["f32"]).sum() / (grads["bf16"].norm() * grads["f32"].norm()))
+    log(f"[train encoder gradient] the bf16 copy's input gradient against the f32 one: cosine {cos:.4f}")
+
+
+def within_rounding(got, ref, ref64) -> float:
+    """(distance of ``got`` to the float64 ``ref64``) / (3 x the f32 ``ref``'s
+    distance to it + 1e-5 of its norm), L2: at most 1 when ``got`` is as
+    close to float64 as f32 rounding puts ``ref``."""
+    got, ref, ref64 = (torch.as_tensor(a).double().cpu() for a in (got, ref, ref64))
+    return float((got - ref64).norm() / (3 * (ref - ref64).norm() + 1e-5 * ref64.norm()))
+
+
+def check_train_step_against_cpu(t: dict) -> None:
+    """(c) One train step at gf 16, df 16, R_NUM 3, batch 4 (the encoders at
+    full width) from the same seeded state, batch and noise: the card (K1,
+    K2 and its backward, cuDNN, TF32 off) against the CPU in f32, each
+    refereed by the CPU in float64.  Every metric within 1e-3 relative of
+    the float64 step; every G and D gradient as close to float64 as 3x the
+    CPU's f32 rounding (L2, ``within_rounding``), which random-weight D256
+    and InceptionV3 make 0.4-1.3% of a tensor.  The EMA's change over the
+    step (0.001 x Adam's first step, about 2e-7) within 2% plus two f32
+    spacings of the CPU's on at least 90% of G's parameters: a first Adam
+    step is lr x sign(g), which a gradient near 0 may flip."""
+    cfg = trainer.TrainConfig(gan=CHECK_GAN, batch_size=CHECK_BATCH, ntoken=gen_bench.COCO_NTOKEN)
+    dicts = g_weights.TrainStateDicts(0, g_weights.random_g_state_dict(5, CHECK_GAN), {}, {
+        s: g_weights.random_d_state_dict(5 + s, CHECK_GAN.df_dim, CHECK_GAN.embedding_dim, s) for s in (64, 128, 256)})
+    batch = trainer.synthetic_batch(cfg, np.random.RandomState(81), CHECK_BATCH)
+    z, eps = generate.draw_noise(6, 0, CHECK_BATCH, CHECK_GAN.z_dim, CHECK_GAN.condition_dim, "cpu")
+    out = {}
+    reset_counters()
+    for name, device, dtype in (("card", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
+                                ("cpu64", "cpu", torch.float64)):
+        t0 = time.perf_counter()
+        models = trainer.build_models(cfg, t["text_state"], t["image_state"], device)
+        if dtype == torch.float64:
+            models = trainer.Models(models.gnet.double(), {s: d.double() for s, d in models.dnets.items()},
+                                    models.text_encoder.double(), models.image_encoder.double())
+        state = trainer.init_state(cfg, models, dicts=dicts)
+        metrics = trainer.make_train_step(cfg, models)(state, batch, z.to(device, dtype), eps.to(device, dtype))
+        grads = {f"g.{k}": p.grad for k, p in state.gnet.named_parameters()}
+        grads.update({f"d{s}.{k}": p.grad for s, d in state.dnets.items() for k, p in d.named_parameters()})
+        ema = {k: v.cpu().double() - torch.from_numpy(dicts.g[k]).double() for k, v in state.g_ema.items()}
+        out[name] = ({k: float(v) for k, v in metrics.items()}, {k: v.cpu() for k, v in grads.items()}, ema)
+        if name == "card":
+            launches = counts()
+        log(f"[train card vs cpu] the {name} step in {time.perf_counter() - t0:.1f} s (with its models)")
+    require(launches["normalize"] == 3 and launches["avg_pool_3x3_s1_p1"] == 9
+            and launches["avg_pool_3x3_s1_p1_backward"] == 9, f"the card's step launched {launches}")
+    m_err = max(abs(out["card"][0][k] - v) / max(abs(v), 1.0) for k, v in out["cpu64"][0].items())
+    ratios = {k: within_rounding(out["card"][1][k], out["cpu"][1][k], v) for k, v in out["cpu64"][1].items()}
+    worst = max(ratios, key=ratios.get)
+    log(f"[train card vs cpu] metrics card {out['card'][0]}; largest relative difference from float64 {m_err:.2e}; "
+        f"gradients: the largest card distance to float64 over 3x the CPU f32's, {worst} {ratios[worst]:.3f}")
+    require(m_err <= 1e-3, f"the card's step metrics differ from float64 by {m_err}")
+    require(ratios[worst] <= 1.0, f"the card's gradient of {worst} is {ratios[worst]:.3f} x the f32 rounding away")
+    agree = moved = total = 0
+    for k, want in out["cpu"][2].items():
+        got = out["card"][2][k]
+        spacing = torch.from_numpy(np.spacing(np.abs(dicts.g[k]))).double()
+        agree += int(((got - want).abs() <= 0.02 * want.abs() + 2 * spacing).sum())
+        moved, total = moved + int(torch.count_nonzero(got)), total + want.numel()
+    log(f"[train card vs cpu] the EMA's change agrees with the CPU's on {agree / total:.4%} of G's {total} "
+        f"parameters; it moved {moved / total:.4%} of them")
+    require(agree >= 0.9 * total and moved >= 0.9 * total, "the card's EMA did not follow the CPU's")
+
+
+def train_image(rng: np.random.RandomState) -> np.ndarray:
+    """A 280-330 px image of colour blocks, bilinearly enlarged."""
+    from PIL import Image
+
+    w, h = rng.randint(280, 331, 2)
+    cells = rng.randint(0, 256, (h // 20 + 1, w // 20 + 1, 3)).astype(np.uint8)
+    return np.asarray(Image.fromarray(cells).resize((w, h), Image.BILINEAR))
+
+
+def make_train_data() -> dict:
+    """Under build/chip_smoke/train/: the reference's layout of 256 JPEGs
+    with 5 captions each (4-25 words of the COCO-size vocabulary of 27,297
+    words, so some are cut to 20) in captions.pickle, train/filenames.pickle
+    and train/class_info.pickle (50 classes); the seeded DAMSM encoders at
+    full width written as the reference's .pth files; 64 captions for the
+    generate CLI."""
+    from PIL import Image
+
+    t0 = time.perf_counter()
+    root = os.path.join(SCRATCH, "train")
+    data = os.path.join(root, "data")
+    os.makedirs(os.path.join(data, "train"))
+    rng = np.random.RandomState(82)
+    keys = [f"img{i:04d}" for i in range(N_TRAIN)]
+    for key in keys:
+        Image.fromarray(train_image(rng)).save(os.path.join(data, f"{key}.jpg"), quality=90)
+    ixtoword, wordtoix = gen_vocab()
+    caps = [list(rng.randint(1, gen_bench.COCO_NTOKEN, rng.randint(4, 26))) for _ in range(N_TRAIN * TRAIN_CAPS)]
+    result_io.save_pickle(os.path.join(data, "captions.pickle"), [caps, [], ixtoword, wordtoix])
+    result_io.save_pickle(os.path.join(data, "train", "filenames.pickle"), keys)
+    result_io.save_pickle(os.path.join(data, "train", "class_info.pickle"), [int(c) for c in rng.randint(0, 50, N_TRAIN)])
+    t = {"root": root, "data": data, "vocab": os.path.join(data, "captions.pickle"),
+         "text": os.path.join(root, "text_encoder.pth"), "image": os.path.join(root, "image_encoder.pth"),
+         "text_state": damsm.random_rnn_state_dict(0, gen_bench.COCO_NTOKEN, nhidden=TRAIN_GAN.embedding_dim // 2),
+         "image_state": damsm.random_cnn_state_dict(0, nef=TRAIN_GAN.embedding_dim)}
+    for key in ("text", "image"):
+        torch.save({k: torch.from_numpy(v) for k, v in t[f"{key}_state"].items()}, t[key])
+    t["captions"] = os.path.join(root, "captions_gen.pkl")
+    result_io.save_pickle(t["captions"], gen_captions(rng, N_TRAIN_GEN, 900000))
+    log(f"[train data] {N_TRAIN} JPEGs, {len(caps)} captions and the full-width DAMSM encoders in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return t
+
+
+def path_train(t: dict) -> list:
+    """(d) ``models.main`` at the published COCO width (gf 64, df 32,
+    R_NUM 3, 256 px, batch 64: 4 steps an epoch) over the layout: 2 epochs
+    with a snapshot each, then a resume for a third; then the generate CLI
+    on the third snapshot's EMA .npz for 64 captions (R_NUM read from it); all
+    of it in f32 (``highest``) and again under ``--encoder_precision
+    fast``.  Each training run launches K1 3 times a step (the real images'
+    three scales) and K2 and its backward 9 times a step (the DAMSM
+    encoder on the 256 px fakes); each keeps only its newest snapshot; the
+    losses are finite and the images not flat."""
+    paths = []
+    for precision in ("highest", "fast"):
+        out = os.path.join(t["root"], precision)
+        argv = ["--data_dir", t["data"], "--output_dir", out, "--net_e", t["text"], "--image_encoder", t["image"],
+                "--encoder_precision", precision, *TRAIN_ARGV]
+        records = []
+        for max_epoch in (2, 3):
+            reset_counters()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                run = train_main.main(argv + ["--max_epoch", str(max_epoch)])
+            seconds = time.perf_counter() - t0
+            launches = counts()
+            steps = sum(r["steps"] for r in run)
+            log(f"[train {precision}] models.main --max_epoch {max_epoch}: {seconds:.2f} s for {len(run)} epochs of "
+                f"{[r['steps'] for r in run]} steps ({steps * TRAIN_BATCH / seconds:.1f} images/s end to end), peak "
+                f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; by epoch: " + "; ".join(
+                    f"{r['seconds']:.2f} s, {r['data_wait_s']:.3f} s waiting for data, g_loss "
+                    f"{r['metrics']['g_loss']:.4f}, d_loss {r['metrics']['d_loss']:.4f}" for r in run)
+                + f"; launches {launches}")
+            require(steps == len(run) * N_TRAIN // TRAIN_BATCH and len(run) == (2 if max_epoch == 2 else 1),
+                    f"the run trained {[r['steps'] for r in run]} steps (a resume trains epoch 3 alone)")
+            require(all(np.isfinite(v) for r in run for v in r["metrics"].values()), f"a loss is not finite: {run}")
+            require(launches["normalize"] == 3 * steps and launches["avg_pool_3x3_s1_p1"] == 9 * steps
+                    and launches["avg_pool_3x3_s1_p1_backward"] == 9 * steps, f"the training run launched {launches}")
+            require(sorted(os.listdir(os.path.join(out, "checkpoints"))) == [f"epoch_{max_epoch}.npz",
+                                                                             f"epoch_{max_epoch}.pt"],
+                    "only the newest snapshot is kept")
+            records += run
+            paths.append(launches)
+        gen_dir = os.path.join(out, "generated")
+        run_cli(f"generate from the {precision} EMA snapshot", generate.main, [
+            "--caption_file", t["captions"], "--output_dir", gen_dir, "--checkpoint",
+            os.path.join(out, "checkpoints", "epoch_3.npz"), "--text_encoder", t["text"], "--captions_pickle",
+            t["vocab"], "--gf_dim", "64", "--words_num", "20"], N_TRAIN_GEN)
+        images = read_pngs(gen_dir)
+        stds = np.array([a.std() for a in images.values()])
+        require(len(images) == N_TRAIN_GEN and all(a.shape == (256, 256, 3) for a in images.values()),
+                "the generated images")
+        log(f"[train {precision}] {len(images)} images from the EMA snapshot, pixel std {stds.min():.2f}-{stds.max():.2f}")
+        require(stds.min() > 1.0, f"a generated image is flat (pixel std {stds.min():.2f})")
+        t[precision] = records
+    return paths
+
+
+def train_timings(t: dict) -> dict:
+    """(e) One train step at the published width on a batch of the layout,
+    f32, TF32 off: its time by events (the median of 3 after a warm-up),
+    its operations (torch's FLOP counter over one step: convolutions and
+    matrix products, forward and backward) and their share of the f32 peak,
+    peak memory and images/s; the host's wait for data a step from the
+    main runs' records.  Its device time comes last
+    (``train_device_times``)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from tise_tpu_torch.models import datasets
+
+    cfg = trainer.TrainConfig(gan=TRAIN_GAN, batch_size=TRAIN_BATCH, ntoken=gen_bench.COCO_NTOKEN)
+    models = trainer.build_models(cfg, t["text_state"], t["image_state"], "cuda")
+    state = trainer.init_state(cfg, models, seed=0)
+    step = trainer.make_train_step(cfg, models)
+    ds = datasets.TextImageDataset(t["data"], "train", words_num=20, captions_per_image=TRAIN_CAPS, seed=1)
+    batch = next(iter(ds.batches(TRAIN_BATCH)))
+    z, eps = generate.draw_noise(1, 0, TRAIN_BATCH, TRAIN_GAN.z_dim, TRAIN_GAN.condition_dim, "cuda")
+    step(state, batch, z, eps)
+    torch.cuda.synchronize()
+    with FlopCounterMode(display=False) as fc:
+        step(state, batch, z, eps)
+    flops = fc.get_total_flops()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(state, batch, z, eps)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    ms = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    least = flops / PEAK_F32 * 1e3
+    waits = {p: sum(r["data_wait_s"] for r in t[p]) / sum(r["steps"] for r in t[p]) for p in ("highest", "fast")}
+    steps_s = {p: sum(r["seconds"] for r in t[p]) / sum(r["steps"] for r in t[p]) for p in ("highest", "fast")}
+    log(f"[time train] a step at gf 64, df 32, R_NUM 3, 256 px, batch {TRAIN_BATCH}: {ms:.1f} ms by events "
+        f"({[round(x, 1) for x in times]}; {TRAIN_BATCH / ms * 1e3:.1f} images/s), {flops / 1e12:.3f} TFLOP "
+        f"(f32 bound {least:.1f} ms, {least / ms:.1%} of the events' time), peak memory {peak:.2f} GiB; in models.main "
+        f"a step took {steps_s['highest'] * 1e3:.1f} ms (fast {steps_s['fast'] * 1e3:.1f} ms) with the epochs' first "
+        f"steps, and the host waited {waits['highest'] * 1e3:.1f} ms a step for data (fast {waits['fast'] * 1e3:.1f})")
+    return {"step": lambda: step(state, batch, z, eps), "events_ms": ms, "flops": flops}
+
+
+def train_device_times(gen: torch.Generator, floor_us: float, t: dict) -> None:
+    """K2's backward at each DAMSM pool shape and the nine of a batch, K1
+    under ``half`` at the three training scales (read cold, the L2 emptied
+    before each call, and warm), and the whole train step on
+    the device (torch.profiler): each beside its bound (and K1 beside
+    torch.addcmul), the step beside its time by events and its device idle
+    share.  Run last, with the other device times."""
+    xs = []
+    for shape, per_batch in POOL_SHAPES:
+        g = torch.randn(shape, generator=gen, device="cuda")
+        b = bound(2 * g.numel() * 4)["bound_ms"]
+        log(f"[K2 backward] {str(shape):22s} on the device (torch.profiler) "
+            f"{against(device_us(lambda: avg_pool_backward_kernel(g, True), calls=5), b)}; adjoint (padding not "
+            f"counted) {against(device_us(lambda: avg_pool_backward_kernel(g, False), calls=5), b)}")
+        xs += [g] * per_batch
+    least = bound(sum(2 * g.numel() * 4 for g in xs))["bound_ms"]
+    calls = [pool2d_backward(g.permute(0, 3, 1, 2).contiguous()) for g in xs]
+    lib = device_us(lambda: [call() for call in calls], calls=5)
+    log(f"[K2 backward] the nine pools' backward of one trunk batch on the device (torch.profiler): "
+        f"{against(device_us(lambda: [avg_pool_backward_kernel(g, True) for g in xs], calls=5), least)}; "
+        f"F.avg_pool2d's backward on contiguous NCHW {'not measured' if lib is None else f'{lib / 1e3:.5f} ms'}")
+    library = normalize_library_call("half")
+    flush = torch.zeros(64 * 2 ** 20, device="cuda")  # 256 MB of f32
+    empty = lambda: flush.sum()  # noqa: E731
+    for side in (64, 128, 256):
+        x = torch.randint(0, 256, (TRAIN_BATCH, side, side, 3), generator=gen, device="cuda", dtype=torch.uint8)
+        b = bound(normalize_bytes(x, torch.float32))["bound_ms"]
+        k, lib = median_ms(lambda: normalize_kernel(x, "half")), median_ms(lambda: library(x))
+        cold, lib_cold = cold_device_us(lambda: normalize_kernel(x, "half"), empty), cold_device_us(
+            lambda: library(x), empty)
+        warm, lib_warm = device_us(lambda: normalize_kernel(x, "half")), device_us(lambda: library(x))
+        require(cold is not None, f"torch.profiler recorded no K1 kernel at {list(x.shape)} in {PROFILE_TRIES} runs")
+        log(f"[K1 normalize] half float32 {list(x.shape)} (training) on the device (torch.profiler), L2 emptied by "
+            f"a 256 MB read before each call: {against(cold, b)}, {cold / floor_us:.2f} launch floors; "
+            f"torch.addcmul {'not measured' if lib_cold is None else f'{lib_cold / 1e3:.5f} ms'}; the same buffers "
+            f"call after call {against(warm, b)}, torch.addcmul "
+            f"{'not measured' if lib_warm is None else f'{lib_warm / 1e3:.5f} ms'}; events {k:.5f} ms, "
+            f"torch.addcmul {lib:.5f} ms")
+    del flush
+    from torch.profiler import ProfilerActivity, profile
+
+    t["step"]()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_TRIES):
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                t["step"]()
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / 2
+        events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(getattr(e, "device_time_total", 0) for e in events) / 2 / 1e3
+        if busy > 0:
+            top = sorted(events, key=lambda e: -getattr(e, "device_time_total", 0))[:6]
+            least = t["flops"] / PEAK_F32 * 1e3
+            log(f"[time train] a step on the device (torch.profiler): {busy:.1f} ms of kernels ({least / busy:.1%} of "
+                f"the f32 bound) in {wall_ms:.1f} ms of profiled wall time (idle share {1 - busy / wall_ms:.1%}); "
+                f"{t['events_ms']:.1f} ms by events; the largest kernels: " + "; ".join(
+                    f"{e.key[:60]} {getattr(e, 'device_time_total', 0) / 2 / 1e3:.1f} ms" for e in top))
+            return
+    log("[time train] a step on the device: not measured (torch.profiler recorded no device time)")
+
+
 L2_BYTES = 50 * 2 ** 20  # the L2 cache of one H100 SXM (NVIDIA's data sheet)
 
 
@@ -2949,6 +3370,7 @@ def main() -> None:
     results = {
         "normalize": check_normalize(gen),
         "avg_pool_3x3_s1_p1": check_avg_pool(gen),
+        "avg_pool_3x3_s1_p1_backward": check_pool_backward(gen),
         "epilogue_matmul": check_epilogue_matmul(gen),
         **check_layout_probes(),
         "stem_mm": check_stem_mm(),
@@ -2999,6 +3421,13 @@ def main() -> None:
     gen_bench_timings()
     path_calibration(g)
     log(f"[gen] the generation phase took {time.perf_counter() - t_gen:.1f} s")
+    t_train = time.perf_counter()
+    tr = make_train_data()
+    check_encoder_gradient(tr)
+    check_train_step_against_cpu(tr)
+    per_path += path_train(tr)
+    train_t = train_timings(tr)
+    log(f"[train] the training phase took {time.perf_counter() - t_train:.1f} s")
     shutil.rmtree(SCRATCH)
     pool_device_times(gen)
     epilogue_device_times(gen)
@@ -3008,6 +3437,7 @@ def main() -> None:
     clip_device_times(towers)
     cub_device_times(gen, half, floor_us, encoders)
     ca_device_times(gen, floor_us, counter_t)
+    train_device_times(gen, floor_us, train_t)
     kernels = []
     for name, (_, route, source, replaces) in KERNELS.items():
         launches = sum(p[name] for p in per_path)

@@ -309,7 +309,10 @@ def test_port_imports_no_jax():
         "                 'models.attngan_pp.generator', 'models.counter_model.generator',\n"
         "                 'models.weights', 'models.visualize', 'models.generate', 'models.gen_example',\n"
         "                 'models.gen_bench', 'calibration.temperature', 'calibration.plots',\n"
-        "                 'calibration.cli', 'core.download'):\n"
+        "                 'calibration.cli', 'core.download',\n"
+        "                 'models.attngan_pp.discriminator', 'models.attngan_pp.losses',\n"
+        "                 'models.attngan_pp.trainer', 'models.attngan_pp.train_loop', 'models.datasets',\n"
+        "                 'models.main', 'models.sampling'):\n"
         "    assert 'tise_tpu_torch.' + required in names, required\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"

@@ -216,13 +216,31 @@ class TestWrappersCallTheirCEntries:
     @pytest.mark.parametrize("include_pad", [True, False])
     def test_avg_pool_kernel(self, fake_wrapper_call, shape, dtype, include_pad):
         """K2's wrapper hands tise_avg_pool3x3_s1_p1 the tensors, the sizes,
-        the dtype code, the count mode and pool_geometry's cut."""
+        the dtype code, the count mode, the forward mode and pool_geometry's
+        cut."""
         got = fake_wrapper_call(fast_pool.avg_pool_kernel, fast_pool._AVG_POOL, torch.zeros(shape, dtype=dtype),
                                 include_pad)
         g = fast_pool.pool_geometry(shape, dtype)
         values = dict(x=X_AT, out=OUT_AT, B=shape[0], H=shape[1], W=shape[2], C=shape[3],
-                      dtype=fast_pool._DTYPES[dtype], include_pad=int(include_pad), vec=g.vec, cvb=g.cvb,
-                      chunk_w=g.chunk_w, n_chunks=g.n_chunks, band_h=g.band_h, n_bands=g.n_bands, stream=0xBEEF)
+                      dtype=fast_pool._DTYPES[dtype], include_pad=int(include_pad), adjoint=0, vec=g.vec,
+                      cvb=g.cvb, chunk_w=g.chunk_w, n_chunks=g.n_chunks, band_h=g.band_h, n_bands=g.n_bands,
+                      stream=0xBEEF)
+        _check_order(fast_pool._AVG_POOL, "avg_pool3x3.cu", values, got)
+
+    @pytest.mark.parametrize("shape,dtype", [((64, 17, 17, 768), torch.float32), ((64, 35, 35, 288), torch.bfloat16)])
+    @pytest.mark.parametrize("include_pad", [True, False])
+    def test_avg_pool_backward_kernel(self, fake_wrapper_call, shape, dtype, include_pad):
+        """K2's backward hands K2's entry the forward's arguments, the
+        gradient in the input's place, in the forward mode where the padding
+        counts (the pool is its own adjoint) and in the adjoint mode where it
+        does not."""
+        got = fake_wrapper_call(fast_pool.avg_pool_backward_kernel, fast_pool._AVG_POOL,
+                                torch.zeros(shape, dtype=dtype), include_pad)
+        g = fast_pool.pool_geometry(shape, dtype)
+        values = dict(x=X_AT, out=OUT_AT, B=shape[0], H=shape[1], W=shape[2], C=shape[3],
+                      dtype=fast_pool._DTYPES[dtype], include_pad=int(include_pad), adjoint=int(not include_pad),
+                      vec=g.vec, cvb=g.cvb, chunk_w=g.chunk_w, n_chunks=g.n_chunks, band_h=g.band_h,
+                      n_bands=g.n_bands, stream=0xBEEF)
         _check_order(fast_pool._AVG_POOL, "avg_pool3x3.cu", values, got)
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -25,6 +25,7 @@ functions carry the JAX package's params across.
 
 from __future__ import annotations
 
+import copy
 from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
@@ -109,11 +110,30 @@ class CNNEncoder(nn.Module):
     @torch.no_grad()
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """x: normalized float NHWC [B, H, W, 3] -> (region features
-        [B, 17, 17, nef] NHWC, cnn_code [B, nef])."""
-        x = resize_bilinear_align_corners(x, (IMAGE_SIZE, IMAGE_SIZE))
-        out = self.trunk(x, endpoints=("mixed6e", "pool3"))
+        [B, 17, 17, nef] NHWC, cnn_code [B, nef]), with no autograd graph
+        (RP-CUB's route)."""
+        return self.encode(x)
+
+    def encode(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``forward`` under autograd: the trainer's DAMSM loss pulls its
+        gradient back to ``x`` through it (the caller freezes the parameters
+        with ``requires_grad_(False)``; the BatchNorms are always in eval
+        mode).  The resize runs in the input's dtype and the trunk in the
+        encoder's: a ``bf16_copy`` takes f32 images and gives bf16 outputs."""
+        x = resize_bilinear_align_corners(x, (IMAGE_SIZE, IMAGE_SIZE)).to(self.emb_cnn_code.weight.dtype)
+        out = self.trunk.features(x, endpoints=("mixed6e", "pool3"))
         features = self.emb_features(out["mixed6e"].permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         return features, self.emb_cnn_code(out["pool3"])
+
+    def bf16_copy(self) -> "CNNEncoder":
+        """A copy whose convolutions and linear layer hold bf16 weights, the
+        BatchNorms' statistics kept in f32 (the JAX package's
+        ``CNNEncoder(dtype=bfloat16)``), frozen."""
+        out = copy.deepcopy(self)
+        for m in out.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                m.to(torch.bfloat16)
+        return out.requires_grad_(False)
 
 
 # ---------------------------------------------------------------------------

@@ -37,7 +37,10 @@ POOL_VARIANTS = ("torch", "tf", "tf2015")
 
 class FrozenBatchNorm2d(nn.Module):
     """Inference BatchNorm with torchvision's buffer names:
-    ``x * inv + (bias - mean * inv)``, ``inv = rsqrt(var + eps) * weight``."""
+    ``x * inv + (bias - mean * inv)``, ``inv = rsqrt(var + eps) * weight``,
+    computed in the buffers' dtype and returned in the input's: a bf16 copy
+    keeps f32 buffers, so it computes in f32 as the JAX package's bf16 trunk
+    does."""
 
     def __init__(self, num_features: int):
         super().__init__()
@@ -49,7 +52,7 @@ class FrozenBatchNorm2d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         inv = torch.rsqrt(self.running_var + BN_EPS) * self.weight
         shift = self.bias - self.running_mean * inv
-        return x * inv.view(1, -1, 1, 1) + shift.view(1, -1, 1, 1)
+        return (x.to(inv.dtype) * inv.view(1, -1, 1, 1) + shift.view(1, -1, 1, 1)).to(x.dtype)
 
 
 class BasicConv2d(nn.Module):
@@ -238,7 +241,13 @@ class InceptionV3(nn.Module):
 
     @torch.no_grad()
     def forward(self, x: torch.Tensor, endpoints: Sequence[str] = ("pool3",)) -> Dict[str, torch.Tensor]:
-        """x: float NHWC [B, H, W, 3] -> {endpoint: NHWC feature map or [B, D]}."""
+        """x: float NHWC [B, H, W, 3] -> {endpoint: NHWC feature map or [B, D]},
+        with no autograd graph (the metrics' route)."""
+        return self.features(x, endpoints)
+
+    def features(self, x: torch.Tensor, endpoints: Sequence[str] = ("pool3",)) -> Dict[str, torch.Tensor]:
+        """``forward`` under autograd: the trainer's route, which pulls a
+        gradient back to ``x`` (K2's backward on the card)."""
         want = set(endpoints)
         for e in want:
             if e not in ENDPOINTS:

@@ -31,6 +31,18 @@
 //     band re-reads only its two halo rows.
 // The wrapper (ops/fast_pool.py::pool_geometry) chooses the instance, the
 // channel slice, the column chunks and the bands, and passes them here.
+//
+// The backward (the pool's adjoint, applied to the incoming gradient g) is a
+// mode of the same kernel.  With count_include_pad the weights are the
+// constant 1/3 and the stencil is symmetric, so the pool is its own adjoint
+// and the wrapper launches the forward mode on g.  Without it, the weight of
+// a tap belongs to the output position:
+//   dx[h, w] = sum over (h', w') in the 3x3 neighbourhood of invh[h'] * invw[w'] * g[h', w'],
+// so the adjoint mode takes each tap's weight at the neighbour instead of
+// the centre: the vertical sum weighs rows h-1, h, h+1 by their own invh,
+// each column multiplies its vertical sum by its own invw before the row
+// buffer, and the horizontal sum adds the three columns unweighted.  Same
+// bytes, same grid, same bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -132,7 +144,7 @@ template <int VEC> struct RowBuffer {
 template <typename T, int VEC>
 __global__ void __launch_bounds__(MAX_THREADS)
 avg_pool3x3_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W, int C, int cvb,
-                   int chunk_w, int n_chunks, int band_h, bool include_pad) {
+                   int chunk_w, int n_chunks, int band_h, bool include_pad, bool adjoint) {
   using P = Pack<T, VEC>;
   using Raw = typename P::Raw;
   extern __shared__ __align__(16) float row_s[];  // two buffers of (chunk_w + 2) x cvb x VEC f32
@@ -167,10 +179,20 @@ avg_pool3x3_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W, i
 
   for (int h = h0, parity = 0; h < h1; ++h, parity ^= 1) {
     const Raw further = load(h + 3);
-    const float invh = edge_inv(h, H, include_pad);
     float v[VEC];
+    if (adjoint) {
+      // each row's own weight (rows outside the image hold zeros: weight 0)
+      const float ia = h >= 1 ? edge_inv(h - 1, H, include_pad) : 0.0f;
+      const float ib = edge_inv(h, H, include_pad);
+      const float ic = h + 1 < H ? edge_inv(h + 1, H, include_pad) : 0.0f;
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) v[k] = __fmul_rn(__fadd_rn(__fadd_rn(a[k], b[k]), n[k]), invh);
+      for (int k = 0; k < VEC; ++k)
+        v[k] = __fmul_rn(__fadd_rn(__fadd_rn(__fmul_rn(a[k], ia), __fmul_rn(b[k], ib)), __fmul_rn(n[k], ic)), invw);
+    } else {
+      const float invh = edge_inv(h, H, include_pad);
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) v[k] = __fmul_rn(__fadd_rn(__fadd_rn(a[k], b[k]), n[k]), invh);
+    }
     const RowBuffer<VEC> buf{row_s + parity * plane * VEC, plane};
     buf.put(slot, v);
     __syncthreads();
@@ -178,8 +200,13 @@ avg_pool3x3_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W, i
       float l[VEC], r[VEC], o[VEC];
       buf.get(slot - cvb, l);
       buf.get(slot + cvb, r);
+      if (adjoint) {  // the columns' weights were taken before the buffer
 #pragma unroll
-      for (int k = 0; k < VEC; ++k) o[k] = __fmul_rn(__fadd_rn(__fadd_rn(l[k], v[k]), r[k]), invw);
+        for (int k = 0; k < VEC; ++k) o[k] = __fadd_rn(__fadd_rn(l[k], v[k]), r[k]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) o[k] = __fmul_rn(__fadd_rn(__fadd_rn(l[k], v[k]), r[k]), invw);
+      }
       dst[h * step] = P::pack(o);
     }
 #pragma unroll
@@ -191,7 +218,7 @@ avg_pool3x3_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W, i
 
 template <typename T, int VEC>
 int launch(const void* x, void* out, int B, int H, int W, int C, int cvb, int chunk_w, int n_chunks, int band_h,
-           int n_bands, bool include_pad, cudaStream_t s) {
+           int n_bands, bool include_pad, bool adjoint, cudaStream_t s) {
   const int threads = (chunk_w + 2) * cvb;
   const size_t shared = 2 * (size_t)threads * VEC * sizeof(float);
   const int slices = (C / VEC + cvb - 1) / cvb;
@@ -199,28 +226,30 @@ int launch(const void* x, void* out, int B, int H, int W, int C, int cvb, int ch
       (int64_t)band_h * n_bands < H || (int64_t)n_chunks * n_bands > 65535 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   avg_pool3x3_kernel<T, VEC><<<dim3(slices, n_chunks * n_bands, B), threads, shared, s>>>(
-      static_cast<const T*>(x), static_cast<T*>(out), H, W, C, cvb, chunk_w, n_chunks, band_h, include_pad);
+      static_cast<const T*>(x), static_cast<T*>(out), H, W, C, cvb, chunk_w, n_chunks, band_h, include_pad, adjoint);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  vec: channels a thread moves in one
+// dtype: 0 = float32, 1 = bfloat16.  adjoint: 0 for the pool, 1 for its
+// adjoint (the backward's mode above; x is then the incoming gradient and
+// out the gradient of the pool's input).  vec: channels a thread moves in one
 // access (4 for f32 or 8 for bf16: 16 bytes; or 1).  cvb: channel vectors per
 // block.  The grid is (ceil(C / vec / cvb), n_chunks * n_bands, B) blocks of
 // (chunk_w + 2) * cvb threads.  Launches on `stream`; returns
 // cudaGetLastError(), or cudaErrorInvalidValue for a geometry it cannot run.
 extern "C" int tise_avg_pool3x3_s1_p1(const void* x, void* out, int B, int H, int W, int C, int dtype,
-                                      int include_pad, int vec, int cvb, int chunk_w, int n_chunks, int band_h,
-                                      int n_bands, void* stream) {
+                                      int include_pad, int adjoint, int vec, int cvb, int chunk_w, int n_chunks,
+                                      int band_h, int n_bands, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool pad = include_pad != 0;
+  const bool pad = include_pad != 0, adj = adjoint != 0;
   if (cvb < 1 || chunk_w < 1 || n_chunks < 1 || band_h < 1 || n_bands < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0 && vec == 4) return launch<float, 4>(x, out, B, H, W, C, cvb, chunk_w, n_chunks, band_h, n_bands, pad, s);
-  if (dtype == 0 && vec == 1) return launch<float, 1>(x, out, B, H, W, C, cvb, chunk_w, n_chunks, band_h, n_bands, pad, s);
+  if (dtype == 0 && vec == 4) return launch<float, 4>(x, out, B, H, W, C, cvb, chunk_w, n_chunks, band_h, n_bands, pad, adj, s);
+  if (dtype == 0 && vec == 1) return launch<float, 1>(x, out, B, H, W, C, cvb, chunk_w, n_chunks, band_h, n_bands, pad, adj, s);
   if (dtype == 1 && vec == 8)
-    return launch<__nv_bfloat16, 8>(x, out, B, H, W, C, cvb, chunk_w, n_chunks, band_h, n_bands, pad, s);
+    return launch<__nv_bfloat16, 8>(x, out, B, H, W, C, cvb, chunk_w, n_chunks, band_h, n_bands, pad, adj, s);
   if (dtype == 1 && vec == 1)
-    return launch<__nv_bfloat16, 1>(x, out, B, H, W, C, cvb, chunk_w, n_chunks, band_h, n_bands, pad, s);
+    return launch<__nv_bfloat16, 1>(x, out, B, H, W, C, cvb, chunk_w, n_chunks, band_h, n_bands, pad, adj, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

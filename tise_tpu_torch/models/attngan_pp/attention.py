@@ -1,13 +1,14 @@
-"""Word -> pixel attention of the AttnGAN++ generator in PyTorch (mirrors
-``SpatialAttention`` of tise_tpu/models/attngan_pp/attention.py; reference:
-AttnGAN++/attention.py:57-109).
+"""Attention of AttnGAN++ in PyTorch (mirrors
+tise_tpu/models/attngan_pp/attention.py; reference: AttnGAN++/attention.py).
 
-The words are projected to the feature width by a bias-free dense layer
+``SpatialAttention`` (:57-109), the generator's word -> pixel attention:
+the words are projected to the feature width by a bias-free dense layer
 (the reference's 1x1 conv on the word axis), each pixel's feature queries
-them, and the softmax runs over words with padding masked.  The mask value
-is ``NEG_INF = -1e9``, not -inf, as in the JAX package: a caption that is
-all padding gives a uniform softmax, not NaN.  ``func_attention``, the
-DAMSM losses' word-region attention, waits for training.
+them, and the softmax runs over words with padding masked.
+``func_attention`` (:16-54), the DAMSM word <-> region attention: softmax
+over words, then a gamma1-scaled softmax over regions.  The mask value is
+``NEG_INF = -1e9``, not -inf, as in the JAX package: a caption that is all
+padding gives a uniform softmax, not NaN.
 """
 
 from __future__ import annotations
@@ -26,6 +27,21 @@ def masked_softmax(scores: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.
     if mask is not None:
         scores = scores.masked_fill(mask[:, None, :], NEG_INF)
     return torch.softmax(scores, dim=-1)
+
+
+def func_attention(query: torch.Tensor, context: torch.Tensor, gamma1: float,
+                   query_mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """DAMSM double-softmax attention (attention.py:16-54).
+
+    query [B, D, Tq] (word features), context [B, D, S] (regions),
+    query_mask [B, Tq] True for a valid word -> (the regions read back per
+    word [B, D, Tq], the attention over regions [B, Tq, S])."""
+    attn = torch.bmm(context.transpose(1, 2), query)  # [B, S, Tq]
+    if query_mask is not None:
+        attn = attn.masked_fill(~query_mask[:, None, :], NEG_INF)
+    attn = torch.softmax(attn, dim=-1)  # over words (Eq. 8)
+    attn = torch.softmax(attn * gamma1, dim=1)  # over regions (Eq. 9)
+    return torch.bmm(context, attn), attn.transpose(1, 2)
 
 
 class SpatialAttention(nn.Module):

@@ -1,21 +1,26 @@
-"""Generator building blocks of AttnGAN++ and CounterModel in PyTorch, NCHW
-(mirrors the generator side of tise_tpu/models/attngan_pp/layers.py;
-reference: AttnGAN++/layers.py).
+"""Building blocks of AttnGAN++ and CounterModel in PyTorch, NCHW (mirrors
+tise_tpu/models/attngan_pp/layers.py; reference: AttnGAN++/layers.py,
+spectral.py).
 
   * GLU halves the channels, a * sigmoid(b) (:7-15): the channel axis is
     dim 1 here, the last axis in the JAX package, so a dense layer's
     features [B, F] and a feature map's channels split alike;
   * upBlock: nearest 2x upsample -> conv3x3 -> BN -> GLU (:29-36);
-  * ResBlock: conv/BN/GLU/conv/BN + skip (:45-60).
+  * ResBlock: conv/BN/GLU/conv/BN + skip (:45-60);
+  * D blocks: spectral-normalised convs + LeakyReLU(0.2) (:64-90), the
+    power iteration written out as the JAX ``SpectralConv`` does it.
 
-The JAX package's ``SyncBatchNorm`` is a BatchNorm whose moments are global
-over the sharded batch; generation runs it with ``train=False``, where it
-reads its running statistics, so here it is a plain ``nn.BatchNorm`` with
-eps 1e-5.  Flax's ``momentum=0.9`` (weight of the old running value) is
-torch's ``momentum=0.1`` (weight of the batch's); it matters only to
-training.  Submodules keep the Flax names with ``Conv_i`` as ``conv{i}``
-and ``SyncBatchNorm_0/bn`` as ``bn``
-(``generator.py::g_state_dict_from_jax_params``).
+The JAX package's ``SyncBatchNorm`` is Flax's ``nn.BatchNorm(momentum=0.9)``
+with eps 1e-5, whose moments are global over the sharded batch.  In eval
+mode it reads its running statistics, as ``nn.BatchNorm`` does.  In train
+mode it normalises with the batch's biased variance and moves the running
+variance towards that same biased variance; ``nn.BatchNorm`` would move it
+towards the unbiased one (4/3 as large over the 4 rows of a batch of 4).
+So ``batch_norm`` builds a BatchNorm whose train mode keeps Flax's running
+statistics: Flax's ``momentum=0.9`` (weight of the old running value) is
+``momentum=0.1`` here (weight of the batch's).  Submodules keep the Flax
+names with ``Conv_i`` as ``conv{i}``, ``SpectralConv_i`` as ``conv{i}`` and
+``SyncBatchNorm_0/bn`` as ``bn`` (``models/weights.py``).
 """
 
 from __future__ import annotations
@@ -33,9 +38,34 @@ def glu(x: torch.Tensor) -> torch.Tensor:
     return a * torch.sigmoid(b)
 
 
+class _FlaxRunningStats:
+    """Train mode as Flax's BatchNorm: normalise with the batch's mean and
+    biased variance, and move both running statistics towards those."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        dims = [0] + list(range(2, x.dim()))
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=dims, correction=0)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked += 1
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
+class BatchNorm1d(_FlaxRunningStats, nn.BatchNorm1d):
+    pass
+
+
+class BatchNorm2d(_FlaxRunningStats, nn.BatchNorm2d):
+    pass
+
+
 def batch_norm(features: int, dims: int = 2) -> nn.Module:
-    """The JAX ``SyncBatchNorm`` (eval mode reads the running statistics)."""
-    cls = nn.BatchNorm2d if dims == 2 else nn.BatchNorm1d
+    """The JAX ``SyncBatchNorm`` (eval mode reads the running statistics,
+    train mode keeps Flax's)."""
+    cls = BatchNorm2d if dims == 2 else BatchNorm1d
     return cls(features, eps=BN_EPS, momentum=BN_MOMENTUM)
 
 
@@ -80,3 +110,87 @@ class ResBlockG(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = glu(self.bn1(self.conv0(x)))
         return x + self.bn2(self.conv1(y))
+
+
+# ---------------------------------------------------------------------------
+# Discriminator blocks
+# ---------------------------------------------------------------------------
+
+
+def l2_normalize(v: torch.Tensor) -> torch.Tensor:
+    return v / (torch.linalg.vector_norm(v) + 1e-12)
+
+
+class SpectralConv(nn.Module):
+    """Conv whose kernel is divided by its leading singular value, estimated
+    by one power-iteration step a call (spectral.py:19-31; the JAX
+    ``SpectralConv``, layers.py:110-157).  W is viewed as (out, -1);
+    ``u`` is a buffer, normalised before use; v = l2n(W^T u) and
+    u_new = l2n(W v) carry no gradient; sigma = u_new . (W v) does,
+    through W only.  ``u`` is not written here: with ``update_stats`` the
+    call keeps u_new in ``pending_u``, and ``commit_u`` stores it, so every
+    call of a step starts from the u of the step's start, as the JAX
+    step's discarded ``mutable`` collections do."""
+
+    def __init__(self, cin: int, features: int, kernel: int, stride: int = 1, padding: int = 1, bias: bool = True):
+        super().__init__()
+        self.stride, self.padding = stride, padding
+        self.weight = nn.Parameter(torch.empty(features, cin, kernel, kernel))
+        self.bias = nn.Parameter(torch.zeros(features)) if bias else None
+        self.register_buffer("u", torch.ones(features))
+        self.pending_u = None
+
+    def forward(self, x: torch.Tensor, update_stats: bool = False) -> torch.Tensor:
+        w_mat = self.weight.flatten(1)
+        with torch.no_grad():
+            u = l2_normalize(self.u)
+            v = l2_normalize(w_mat.t() @ u)
+            u_new = l2_normalize(w_mat @ v)
+        if update_stats:
+            self.pending_u = u_new
+        sigma = u_new @ (w_mat @ v)
+        return F.conv2d(x, self.weight / sigma, self.bias, self.stride, self.padding)
+
+    def commit_u(self) -> None:
+        if self.pending_u is not None:
+            self.u.copy_(self.pending_u)
+            self.pending_u = None
+
+
+class DownBlockD(nn.Module):
+    """Spectral conv4x4 stride 2 + LeakyReLU(0.2) (layers.py:70-74)."""
+
+    def __init__(self, cin: int, features: int):
+        super().__init__()
+        self.conv0 = SpectralConv(cin, features, 4, stride=2, padding=1)
+
+    def forward(self, x: torch.Tensor, update_stats: bool = False) -> torch.Tensor:
+        return F.leaky_relu(self.conv0(x, update_stats), 0.2)
+
+
+class Block3x3LeakyD(nn.Module):
+    """Spectral conv3x3 + LeakyReLU(0.2), keeps the size (layers.py:64-67)."""
+
+    def __init__(self, cin: int, features: int):
+        super().__init__()
+        self.conv0 = SpectralConv(cin, features, 3, stride=1, padding=1)
+
+    def forward(self, x: torch.Tensor, update_stats: bool = False) -> torch.Tensor:
+        return F.leaky_relu(self.conv0(x, update_stats), 0.2)
+
+
+class EncodeBy16(nn.Module):
+    """Four stride-2 spectral convs: image -> 1/16 the side, 8 ndf channels
+    (layers.py:78-90)."""
+
+    def __init__(self, ndf: int):
+        super().__init__()
+        cin = 3
+        for i, mult in enumerate((1, 2, 4, 8)):
+            setattr(self, f"down{i}", DownBlockD(cin, ndf * mult))
+            cin = ndf * mult
+
+    def forward(self, x: torch.Tensor, update_stats: bool = False) -> torch.Tensor:
+        for i in range(4):
+            x = getattr(self, f"down{i}")(x, update_stats)
+        return x

@@ -129,6 +129,7 @@ def main(argv=None) -> None:
     gan = generate.gan_config(args)
     g_state, text_state = generate.load_generator_from_checkpoint(
         args.checkpoint, args.text_encoder, gan, len(ixtoword), "attngan_pp")
+    gan = generate.checkpoint_gan(gan, g_state)
     sampler = ExampleSampler(g_state, text_state, gan=gan, seed=args.seed, device=args.device)
     out = args.output_dir or (os.path.splitext(args.checkpoint)[0] + "_examples")
     data = read_example_captions(args.data_dir, wordtoix)

@@ -33,10 +33,11 @@ written by a pool of threads while the card runs the next batch.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Sequence, Tuple
+from typing import Any, Dict, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -216,10 +217,17 @@ def add_generator_flags(p: argparse.ArgumentParser) -> None:
 
 
 def gan_config(args) -> GanConfig:
-    """The JAX CLIs' GanConfig: no --r_num, so R_NUM is 2 (a checkpoint of
-    another R_NUM is refused by the strict load)."""
+    """The JAX CLIs' GanConfig (no --r_num: ``checkpoint_gan`` reads it from
+    the checkpoint)."""
     return GanConfig(gf_dim=args.gf_dim, z_dim=args.z_dim, condition_dim=args.condition_dim,
                      embedding_dim=args.embedding_dim, words_num=args.words_num)
+
+
+def checkpoint_gan(gan: GanConfig, g_state: Mapping[str, Any]) -> GanConfig:
+    """``gan`` with the R_NUM that the checkpoint's stages hold.  The JAX CLIs
+    always run 2 and drop any further block (ROADMAP Queue 3 item 11); a
+    snapshot of ``models.main --num_residual 3`` holds 3."""
+    return dataclasses.replace(gan, r_num=g_weights.r_num_of(g_state, gan.r_num))
 
 
 def main(argv=None) -> None:
@@ -238,6 +246,7 @@ def main(argv=None) -> None:
     gan = gan_config(args)
     g_state, text_state = load_generator_from_checkpoint(args.checkpoint, args.text_encoder, gan, len(ixtoword),
                                                          args.model)
+    gan = checkpoint_gan(gan, g_state)
     gen = CaptionGenerator(g_state, text_state, gan=gan, model=args.model, seed=args.seed, device=args.device)
     data = result_io.load_pickle(args.caption_file)
     kw = {"batch_size": args.batch_size, "words_num": args.words_num}

@@ -1,6 +1,7 @@
-"""Generator weights: the JAX package's params carried across, seeded ones,
-and the strict load (the generator side of tise_tpu/models/generate.py's
-checkpoint handling).
+"""Generator and discriminator weights: the JAX package's params carried
+across, seeded ones, and the strict load (the generator side of
+tise_tpu/models/generate.py's checkpoint handling), and the JAX trainer's
+``TrainState`` as the port's trainer state.
 
 The port's generators keep the Flax module names, so a Flax path maps to a
 state-dict key by three renames: ``Conv_i`` -> ``conv{i}``,
@@ -8,7 +9,8 @@ state-dict key by three renames: ``Conv_i`` -> ``conv{i}``,
 wrapper is dropped (``up1/SyncBatchNorm_0/bn/scale`` ->
 ``up1.bn.weight``, ``res0/bn1/bn/mean`` -> ``res0.bn1.running_mean``).
 Conv kernels go from HWIO to OIHW, dense kernels from [in, out] to
-[out, in].  Loading is strict: a tree made for another ``r_num``, branch
+[out, in].  A discriminator's ``SpectralConv_i`` is ``conv{i}``, with its
+power-iteration vector ``u`` (the JAX ``spectral`` collection) as a buffer.  Loading is strict: a tree made for another ``r_num``, branch
 count or width raises and names the keys that do not fit (the JAX CLIs
 apply a Flax module to any tree whose used leaves fit, so an ``r_num=3``
 checkpoint silently loses a residual block a stage under their
@@ -18,13 +20,14 @@ checkpoint silently loses a residual block a stage under their
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, NamedTuple, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from tise_tpu_torch.core.config import resolve_device
+from tise_tpu_torch.models.attngan_pp.discriminator import DNet
 from tise_tpu_torch.models.attngan_pp.generator import GanConfig, GNet
 from tise_tpu_torch.models.counter_model.generator import CounterGNet
 
@@ -41,7 +44,7 @@ def make_generator(model: str, cfg: GanConfig) -> nn.Module:
 def _torch_segment(seg: str) -> str:
     if seg == "SyncBatchNorm_0":
         return "bn"
-    return re.sub(r"^Conv_(\d+)$", r"conv\1", seg)
+    return re.sub(r"^(?:Spectral)?Conv_(\d+)$", r"conv\1", seg)
 
 
 def _jax_segment(seg: str) -> str:
@@ -154,3 +157,96 @@ def load_generator(state: Mapping[str, Any], cfg: GanConfig, model: str = "attng
     net = make_generator(model, cfg)
     net.load_state_dict({k: torch.tensor(np.asarray(v)) for k, v in state.items()}, strict=True)
     return net.eval().to(device)
+
+
+def r_num_of(state: Mapping[str, Any], default: int) -> int:
+    """The residual blocks a stage holds in a generator state dict
+    (``<stage>.res0`` .. ``res{n-1}``), or ``default`` where no stage has
+    any.  A tree whose stages disagree is still refused by the strict load."""
+    found = [int(m.group(1)) for k in state for m in [re.match(r"\w+\.res(\d+)\.", k)] if m]
+    return max(found) + 1 if found else default
+
+
+# ---------------------------------------------------------------------------
+# Discriminators and the trainer's state
+# ---------------------------------------------------------------------------
+
+
+def _conv_leaf(leaf: str, v: np.ndarray) -> Tuple[str, np.ndarray]:
+    if leaf == "kernel":
+        return "weight", np.transpose(v, (3, 2, 0, 1))
+    return leaf, v
+
+
+def d_state_dict_from_jax_params(params: Mapping[str, Any], spectral: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """A JAX ``DNet``'s params and its ``spectral`` collection (numpy
+    leaves) -> the port's ``DNet`` state dict: every spectral conv's kernel,
+    bias and u, and the heads' plain ``out`` convs."""
+    out: Dict[str, np.ndarray] = {}
+    for tree in (params.get("params", params), spectral.get("spectral", spectral)):
+        for path, v in _leaves(tree):
+            *mods, leaf = path
+            leaf, v = _conv_leaf(leaf, v)
+            out[".".join(_torch_segment(s) for s in mods) + f".{leaf}"] = np.ascontiguousarray(v, np.float32)
+    return out
+
+
+def jax_params_from_d_state_dict(state: Mapping[str, Any]) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """The inverse: a ``DNet`` state dict -> (params, spectral) in the JAX
+    tree's layout, numpy leaves."""
+    params: Dict[str, Any] = {}
+    spectral: Dict[str, Any] = {}
+    for key, v in state.items():
+        prefix, leaf = key.rsplit(".", 1)
+        v = np.asarray(v)
+        path = [re.sub(r"^conv(\d+)$", r"SpectralConv_\1", s) for s in prefix.split(".")]
+        tree = spectral if leaf == "u" else params
+        if leaf == "weight":
+            leaf, v = "kernel", np.transpose(v, (2, 3, 1, 0))
+        node = tree
+        for seg in path:
+            node = node.setdefault(seg, {})
+        node[leaf] = np.ascontiguousarray(v, np.float32)
+    return params, spectral
+
+
+def random_d_state_dict(seed: int, ndf: int, nef: int, scale: int) -> Dict[str, np.ndarray]:
+    """Seeded discriminator weights made with numpy: conv weights normal with
+    std 1/sqrt(fan in) (the variance of Flax's lecun_normal), biases zero,
+    every u standard normal."""
+    with torch.device("meta"):
+        shapes = {k: tuple(v.shape) for k, v in DNet(ndf, nef, scale).state_dict().items()}
+    rng = np.random.RandomState(seed)
+    out: Dict[str, np.ndarray] = {}
+    for key, shape in shapes.items():
+        leaf = key.rsplit(".", 1)[1]
+        if leaf == "weight":
+            v = rng.standard_normal(shape) / np.sqrt(np.prod(shape[1:]))
+        elif leaf == "u":
+            v = rng.standard_normal(shape)
+        else:
+            v = np.zeros(shape)
+        out[key] = v.astype(np.float32)
+    return out
+
+
+class TrainStateDicts(NamedTuple):
+    """The trainable state as state dicts: G's (parameters and running
+    statistics), the EMA of G's parameters (parameter names only), and each
+    scale's D (parameters and u).  Adam's moments are not carried: they
+    start at zero in both packages."""
+
+    step: int
+    g: Dict[str, np.ndarray]
+    g_ema: Dict[str, np.ndarray]
+    d: Dict[int, Dict[str, np.ndarray]]
+
+
+def train_state_dicts_from_jax(state: Any, model: str = "attngan_pp") -> TrainStateDicts:
+    """The JAX trainer's ``TrainState`` (numpy leaves, as ``jax.device_get``
+    gives them) -> the port's ``TrainStateDicts``."""
+    g = g_state_dict_from_jax_params(state.g_params, state.g_batch_stats, model)
+    ema = g_state_dict_from_jax_params(state.g_ema, {}, model)
+    ema = {k: v for k, v in ema.items() if not k.endswith("num_batches_tracked")}
+    d = {int(k): d_state_dict_from_jax_params(state.d_params[k], state.d_spectral[k]) for k in state.d_params}
+    return TrainStateDicts(int(np.asarray(state.step)), g, ema, d)

@@ -12,7 +12,11 @@ not bit-equal to one division by 9 or by the tap count.
 
 On a CUDA tensor the pool IS kernel K2 (``csrc/avg_pool3x3.cu``); a CPU
 tensor takes the plain version.  There is no switch that routes the card off
-the kernel.
+the kernel.  The card's route is differentiable: its backward is K2 again
+(``avg_pool_backward_kernel``): with the padding counted the pool is its own
+adjoint, without it the kernel's adjoint mode takes each tap's weight at
+the neighbour.  The backward's plain version is autograd through
+``avg_pool_plain``, which CPU tensors take.
 """
 
 from __future__ import annotations
@@ -56,9 +60,16 @@ def avg_pool_plain(x: torch.Tensor, count_include_pad: bool = True) -> torch.Ten
     return out.to(x.dtype)
 
 
-_AVG_POOL = native.CFunction(
-    "avg_pool3x3", "tise_avg_pool3x3_s1_p1",
-    [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 12 + [ctypes.c_void_p])
+def avg_pool_backward_plain(g: torch.Tensor, count_include_pad: bool = True) -> torch.Tensor:
+    """Plain version of K2's backward: the gradient of ``avg_pool_plain``'s
+    input for the incoming gradient ``g`` (NHWC), by autograd."""
+    with torch.enable_grad():
+        x = torch.zeros_like(g, requires_grad=True)  # the pool is linear: any input gives the same adjoint
+        return torch.autograd.grad(avg_pool_plain(x, count_include_pad), x, g)[0]
+
+
+_AVG_POOL = native.CFunction("avg_pool3x3", "tise_avg_pool3x3_s1_p1",
+                             [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 13 + [ctypes.c_void_p])
 
 #: the instances the wrapper chooses from: 16-byte accesses over whole rows,
 #: one element an access over whole rows, and rows cut into column chunks
@@ -135,14 +146,13 @@ def pool_geometry(shape: Tuple[int, int, int, int], dtype: torch.dtype, aligned:
     return _geometry(shape, _ITEMSIZE[dtype], aligned, TARGET_THREADS, MIN_BLOCKS, MIN_BAND)
 
 
-def avg_pool_kernel(x: torch.Tensor, count_include_pad: bool = True) -> torch.Tensor:
-    """K2 on a CUDA tensor: NHWC contiguous f32 or bf16 -> same shape and dtype."""
+def _launch_pool(counter, x: torch.Tensor, count_include_pad: bool, adjoint: bool) -> torch.Tensor:
     if not x.is_cuda:
-        raise ValueError("avg_pool_kernel takes a CUDA tensor")
+        raise ValueError(f"{counter.__name__} takes a CUDA tensor")
     if x.dim() != 4 or x.dtype not in _DTYPES:
         raise ValueError(f"expected f32/bf16 NHWC, got {x.dtype} {tuple(x.shape)}")
     if not x.is_contiguous():
-        raise ValueError("avg_pool_kernel takes a contiguous NHWC tensor")
+        raise ValueError(f"{counter.__name__} takes a contiguous NHWC tensor")
     b, h, w, c = x.shape
     if b > 65535:
         raise ValueError(f"batch {b} exceeds the kernel's grid limit 65535")
@@ -150,17 +160,53 @@ def avg_pool_kernel(x: torch.Tensor, count_include_pad: bool = True) -> torch.Te
     if x.numel() == 0:
         return out
     g = pool_geometry(tuple(x.shape), x.dtype, x.data_ptr() % 16 == 0)
-    native.launch(_AVG_POOL, avg_pool_kernel, x.device, x.data_ptr(), out.data_ptr(), b, h, w, c,
-                  _DTYPES[x.dtype], int(count_include_pad), g.vec, g.cvb, g.chunk_w, g.n_chunks, g.band_h, g.n_bands)
+    native.launch(_AVG_POOL, counter, x.device, x.data_ptr(), out.data_ptr(), b, h, w, c,
+                  _DTYPES[x.dtype], int(count_include_pad), int(adjoint), g.vec, g.cvb, g.chunk_w, g.n_chunks, g.band_h, g.n_bands)
     return out
+
+
+def avg_pool_kernel(x: torch.Tensor, count_include_pad: bool = True) -> torch.Tensor:
+    """K2 on a CUDA tensor: NHWC contiguous f32 or bf16 -> same shape and dtype."""
+    return _launch_pool(avg_pool_kernel, x, count_include_pad, adjoint=False)
 
 
 avg_pool_kernel.launches = 0
 
 
+def avg_pool_backward_kernel(g: torch.Tensor, count_include_pad: bool = True) -> torch.Tensor:
+    """K2's backward on a CUDA tensor: the incoming NHWC gradient -> the
+    gradient of the pool's input.  The pool itself where the padding counts
+    (it is its own adjoint), the kernel's adjoint mode where it does not.
+    A gradient that arrives non-contiguous is copied first, and
+    ``copies`` counts it."""
+    if g.is_cuda and not g.is_contiguous():
+        g = g.contiguous()
+        avg_pool_backward_kernel.copies += 1
+    return _launch_pool(avg_pool_backward_kernel, g, count_include_pad, adjoint=not count_include_pad)
+
+
+avg_pool_backward_kernel.launches = 0
+avg_pool_backward_kernel.copies = 0
+
+
+class _AvgPool3x3(torch.autograd.Function):
+    """K2 with K2's backward."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, count_include_pad: bool) -> torch.Tensor:
+        ctx.count_include_pad = count_include_pad
+        return avg_pool_kernel(x, count_include_pad)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return avg_pool_backward_kernel(g, ctx.count_include_pad), None
+
+
 def avg_pool_3x3_s1_p1(x: torch.Tensor, count_include_pad: bool = True) -> torch.Tensor:
-    """NHWC 3x3 stride-1 pad-1 average pool: K2 on a CUDA tensor, the plain
-    version on a CPU tensor."""
+    """NHWC 3x3 stride-1 pad-1 average pool: K2 on a CUDA tensor (with K2's
+    backward where autograd records it), the plain version on a CPU tensor."""
     if x.device.type == "cpu":
         return avg_pool_plain(x, count_include_pad)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _AvgPool3x3.apply(x, count_include_pad)
     return avg_pool_kernel(x, count_include_pad)

@@ -159,7 +159,7 @@ def run_geometry(g: fast_pool.PoolGeometry, x: torch.Tensor, include_pad: bool =
     """The committed K2 under a geometry of the caller's choosing."""
     out = torch.empty_like(x)
     native.launch(fast_pool._AVG_POOL, _Counter, x.device, x.data_ptr(), out.data_ptr(), *x.shape,
-                  fast_pool._DTYPES[x.dtype], int(include_pad), g.vec, g.cvb, g.chunk_w, g.n_chunks, g.band_h,
+                  fast_pool._DTYPES[x.dtype], int(include_pad), 0, g.vec, g.cvb, g.chunk_w, g.n_chunks, g.band_h,
                   g.n_bands)
     return out
 
