@@ -91,7 +91,18 @@ of CLIP ViT-B/32 at 224 x 224:
     ``.pth`` files: 2 epochs with a snapshot each and a resume for a third,
     then the generate CLI on the EMA ``.npz``, in f32 and under
     ``--encoder_precision fast``; the step's time by events and on the
-    device, its operations, peak memory and the host's wait for data.
+    device, its operations, peak memory and the host's wait for data;
+  * DAMSM pretraining and CounterModel training over a CUB-style layout
+    (256 + 64 seeded JPEGs cropped to their boxes, 10 captions each of a
+    5,450-word vocabulary): one pretraining step (full width, batch 4) and
+    one counter step (gf 16, batch 4) on the card against the CPU, refereed
+    by float64; ``models.damsm_pretrain.main`` at full width and batch 64
+    from seeded encoders (2 epochs with validation and a resume), then
+    ``models.main --model counter_model`` at the JAX CLI's defaults (gf 128,
+    df 64, R_NUM 2, batch 64, lambda 5) from the pretrained best encoders
+    (2 epochs and a resume), the generate CLI on its EMA snapshot; each
+    step's time by events and on the device, its operations and peak
+    memory.
 
 Launch counters, set to 0 before each path and read after it, show that each
 path ran its kernels.  K1 is held to its plain version bit for bit in every
@@ -151,11 +162,12 @@ from tise_tpu_torch.core.config import (IS_STAR_TEMPERATURE_COCO, IS_STAR_TEMPER
 from tise_tpu_torch.core.data import BICUBIC, ImageFolderLoader, center_crop_resize, list_images, load_image
 from tise_tpu_torch.metrics import ca, crop_objects, fid, is_star, o_fid, o_is, pa, rp_coco, rp_cub, soa
 from tise_tpu_torch.metrics.clip_scorer import ClipPairScorer
-from tise_tpu_torch.models import gen_bench, gen_example, generate
+from tise_tpu_torch.models import damsm_pretrain, gen_bench, gen_example, generate
 from tise_tpu_torch.models import main as train_main
 from tise_tpu_torch.models import weights as g_weights
 from tise_tpu_torch.models.attngan_pp import trainer
 from tise_tpu_torch.models.attngan_pp.generator import GanConfig
+from tise_tpu_torch.models.counter_model import trainer as counter_trainer
 from tise_tpu_torch.ops import fast_pool, native, sqrtm, stats
 from tise_tpu_torch.ranking import ranking_score
 from tise_tpu_torch.ops.fast_pool import (avg_pool_backward_kernel, avg_pool_backward_plain, avg_pool_kernel,
@@ -170,10 +182,10 @@ from tise_tpu_torch.tools.kernel_compare import (POOL_SHAPES, PROFILE_TRIES, STE
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SCRATCH = os.path.join(ROOT, "build", "chip_smoke")
-# per side: ten times the 2048 features, so each sample covariance keeps
-# its smallest eigenvalues within about half of the population's
-# (Marchenko–Pastur) and f32 Newton–Schulz converges on it
-N_IMAGES = 20480
+# per side: five times the 2048 features, so each sample covariance keeps
+# its smallest eigenvalues within about a third of the population's
+# (Marchenko–Pastur: (1 - 5^-1/2)^2) and f32 Newton–Schulz converges on it
+N_IMAGES = 10240
 N_COCO = 5120      # IS* COCO: every image is scored
 N_CUB = 2600       # IS* CUB: shuffled, then the tail beyond 40 batches of 64 is dropped
 N_CROPS = 256      # O-FID and O-IS
@@ -2986,12 +2998,16 @@ def check_encoder_gradient(t: dict) -> None:
     log(f"[train encoder gradient] the bf16 copy's input gradient against the f32 one: cosine {cos:.4f}")
 
 
-def within_rounding(got, ref, ref64) -> float:
+def within_rounding(got, ref, ref64, floor: float = 0.0) -> float:
     """(distance of ``got`` to the float64 ``ref64``) / (3 x the f32 ``ref``'s
-    distance to it + 1e-5 of its norm), L2: at most 1 when ``got`` is as
-    close to float64 as f32 rounding puts ``ref``."""
+    distance to it + the larger of 1e-5 and 3 ``floor`` of its norm), L2: at
+    most 1 when ``got`` is as close to float64 as f32 rounding puts ``ref``;
+    0 where ``got`` is ``ref64``."""
     got, ref, ref64 = (torch.as_tensor(a).double().cpu() for a in (got, ref, ref64))
-    return float((got - ref64).norm() / (3 * (ref - ref64).norm() + 1e-5 * ref64.norm()))
+    distance = float((got - ref64).norm())
+    if distance == 0.0:
+        return 0.0  # a gradient no loss reaches is 0 everywhere
+    return distance / max(float(3 * (ref - ref64).norm() + max(1e-5, 3 * floor) * ref64.norm()), 1e-300)
 
 
 def check_train_step_against_cpu(t: dict) -> None:
@@ -3173,14 +3189,7 @@ def train_timings(t: dict) -> dict:
         step(state, batch, z, eps)
     flops = fc.get_total_flops()
     torch.cuda.reset_peak_memory_stats()
-    times = []
-    for _ in range(3):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        step(state, batch, z, eps)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
+    times = step_events_ms(lambda: step(state, batch, z, eps))
     ms = statistics.median(times)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     least = flops / PEAK_F32 * 1e3
@@ -3233,28 +3242,442 @@ def train_device_times(gen: torch.Generator, floor_us: float, t: dict) -> None:
             f"{'not measured' if lib_warm is None else f'{lib_warm / 1e3:.5f} ms'}; events {k:.5f} ms, "
             f"torch.addcmul {lib:.5f} ms")
     del flush
+    step_device_time("time train", t["step"], t["events_ms"], t["flops"])
+
+
+def step_device_time(tag: str, step, events_ms: float, flops: float) -> None:
+    """A whole train step on the device (torch.profiler over two steps after
+    a warm-up): its kernels' time beside the f32 bound of its ``flops`` and
+    its time by events, the device's idle share of the profiled wall time,
+    and the largest kernels."""
     from torch.profiler import ProfilerActivity, profile
 
-    t["step"]()
+    step()
     torch.cuda.synchronize()
     for _ in range(PROFILE_TRIES):
         t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(2):
-                t["step"]()
+                step()
             torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / 2
         events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
         busy = sum(getattr(e, "device_time_total", 0) for e in events) / 2 / 1e3
         if busy > 0:
             top = sorted(events, key=lambda e: -getattr(e, "device_time_total", 0))[:6]
-            least = t["flops"] / PEAK_F32 * 1e3
-            log(f"[time train] a step on the device (torch.profiler): {busy:.1f} ms of kernels ({least / busy:.1%} of "
+            least = flops / PEAK_F32 * 1e3
+            log(f"[{tag}] a step on the device (torch.profiler): {busy:.1f} ms of kernels ({least / busy:.1%} of "
                 f"the f32 bound) in {wall_ms:.1f} ms of profiled wall time (idle share {1 - busy / wall_ms:.1%}); "
-                f"{t['events_ms']:.1f} ms by events; the largest kernels: " + "; ".join(
+                f"{events_ms:.1f} ms by events; the largest kernels: " + "; ".join(
                     f"{e.key[:60]} {getattr(e, 'device_time_total', 0) / 2 / 1e3:.1f} ms" for e in top))
             return
-    log("[time train] a step on the device: not measured (torch.profiler recorded no device time)")
+    log(f"[{tag}] a step on the device: not measured (torch.profiler recorded no device time)")
+
+
+# ---------------------------------------------------------------------------
+# 12. DAMSM pretraining and CounterModel training
+# ---------------------------------------------------------------------------
+
+N_CUB_TRAIN = 256         # training images of the CUB-style layout, 280-330 px JPEGs: 4 steps an epoch
+N_CUB_TEST = 64           # its test split: one validation batch an epoch
+CUB_CAPS = 10             # captions an image (--caps_per_img's default, CUB's count)
+CUB_TRAIN_BATCH = 64      # pretraining's batch (TRAIN.BATCH_SIZE)
+COUNTER_BATCH = 64        # the CounterModel's batch (TRAIN.BATCH_SIZE)
+N_COUNTER_GEN = 64        # captions the generate CLI draws from the counter's EMA snapshot
+#: the JAX CLI's defaults, the reference's miscc/config.py (tise_tpu/models/main.py:34-52): gf 128, df 64, z 100,
+#: condition 100, embedding 256, R_NUM 2, 18 words; the CounterModel's seven scales reach 256 px
+COUNTER_GAN = GanConfig()
+#: the card-against-CPU counter step's width (the encoders keep their full width)
+COUNTER_CHECK_GAN = GanConfig(gf_dim=16, df_dim=16)
+#: f32 rounding of a sum of 2^18 terms in another order, relative to their scale: sqrt(2^18) x 2^-24
+F32_SUM_ROUNDING = 2.0 ** 9 * 2.0 ** -24
+
+
+def cub_train_vocab() -> tuple:
+    """A synthesised vocabulary of the CUB size (5,450 entries, index 0 the
+    padding token)."""
+    words = ["<end>"] + [f"w{i:04d}" for i in range(1, CUB_NTOKEN)]
+    return dict(enumerate(words)), {w: i for i, w in enumerate(words)}
+
+
+def make_cub_train_data() -> dict:
+    """Under build/chip_smoke/birds/ ("birds" in the path, so the dataset
+    crops each image around its box, as on CUB): the reference's CUB layout
+    of 256 training and 64 test JPEGs of 280-330 px under
+    CUB_200_2011/images with images.txt and bounding_boxes.txt, 10
+    captions an image of 4-25 words of the CUB-size vocabulary (5,450
+    entries; some cut to 18) in captions.pickle, and filenames and class
+    info a split (50 classes); 64 captions for the generate CLI."""
+    from PIL import Image
+
+    t0 = time.perf_counter()
+    root = os.path.join(SCRATCH, "birds")
+    data = os.path.join(root, "data")
+    image_dir = os.path.join(data, "CUB_200_2011", "images")
+    os.makedirs(image_dir)
+    rng = np.random.RandomState(91)
+    caps, rows = {}, []
+    for split, n in (("train", N_CUB_TRAIN), ("test", N_CUB_TEST)):
+        keys = [f"{split}{i:04d}" for i in range(n)]
+        os.makedirs(os.path.join(data, split))
+        for key in keys:
+            im = train_image(rng)
+            Image.fromarray(im).save(os.path.join(image_dir, f"{key}.jpg"), quality=90)
+            h, w = im.shape[:2]
+            rows.append((f"{key}.jpg", rng.randint(0, w // 4), rng.randint(0, h // 4), rng.randint(w // 3, w // 2),
+                         rng.randint(h // 3, h // 2)))
+        caps[split] = [list(rng.randint(1, CUB_NTOKEN, rng.randint(4, 26))) for _ in range(n * CUB_CAPS)]
+        result_io.save_pickle(os.path.join(data, split, "filenames.pickle"), keys)
+        result_io.save_pickle(os.path.join(data, split, "class_info.pickle"), [int(c) for c in rng.randint(1, 51, n)])
+    with open(os.path.join(data, "CUB_200_2011", "images.txt"), "w") as f:
+        f.write("".join(f"{i + 1} {r[0]}\n" for i, r in enumerate(rows)))
+    with open(os.path.join(data, "CUB_200_2011", "bounding_boxes.txt"), "w") as f:
+        f.write("".join(f"{i + 1} {r[1]}.0 {r[2]}.0 {r[3]}.0 {r[4]}.0\n" for i, r in enumerate(rows)))
+    ixtoword, wordtoix = cub_train_vocab()
+    b = {"root": root, "data": data, "vocab": os.path.join(data, "captions.pickle"),
+         "captions": os.path.join(root, "captions_gen.pkl")}
+    result_io.save_pickle(b["vocab"], [caps["train"], caps["test"], ixtoword, wordtoix])
+    result_io.save_pickle(b["captions"], [{"caption_id": 950000 + i, "caption": " ".join(
+        f"w{k:04d}" for k in rng.randint(1, CUB_NTOKEN, rng.randint(5, 19)))} for i in range(N_COUNTER_GEN)])
+    log(f"[cub train data] {N_CUB_TRAIN} + {N_CUB_TEST} JPEGs with CUB boxes and "
+        f"{len(caps['train']) + len(caps['test'])} captions of a {CUB_NTOKEN}-word vocabulary in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return b
+
+
+def grad_or_zero(p: torch.nn.Parameter) -> torch.Tensor:
+    """A parameter's gradient on the CPU, zeros where no loss reached it (the
+    CounterModel's 4 px image head: its D reads 8 .. 256 px)."""
+    return torch.zeros(p.shape) if p.grad is None else p.grad.detach().cpu()
+
+
+def module_rounding(got: dict, ref64: dict) -> float:
+    """The f32 rounding of a module's gradient as a whole: the L2 distance of
+    all its f32 gradients to the float64 ones over their norm."""
+    diff = sum(float((got[k].double() - ref64[k].double()).norm() ** 2) for k in ref64)
+    return (diff / sum(float(v.double().norm() ** 2) for v in ref64.values())) ** 0.5
+
+
+def check_pretrain_step_against_cpu() -> None:
+    """(a) One pretraining step at full width (the CUB vocabulary of 5,450
+    words, embedding 256, InceptionV3 at 299) on 4 seeded 256 px images from
+    the same seeded encoders: the card (K1, K2, cuDNN's LSTM in train mode,
+    TF32 off) against the CPU in f32, each refereed by the CPU in float64.
+    The metrics within 1e-4 relative of float64; the text encoder's (after
+    the clip) and the heads' gradients as close to float64 as 3x the CPU's
+    f32 rounding (``within_rounding``); the card's step launches K1 once, K2
+    9 times and K2's backward never (the trunk runs under no_grad)."""
+    cfg = damsm_pretrain.DamsmPretrainConfig(ntoken=CUB_NTOKEN)
+    text, image = damsm.random_rnn_state_dict(3, CUB_NTOKEN), damsm.random_cnn_state_dict(3)
+    rng = np.random.RandomState(92)
+    images = rng.randint(0, 256, (CHECK_BATCH, 256, 256, 3)).astype(np.uint8)
+    lens = rng.randint(4, 19, CHECK_BATCH).astype(np.int32)
+    caps = np.where(np.arange(18)[None, :] < lens[:, None], rng.randint(1, CUB_NTOKEN, (CHECK_BATCH, 18)), 0)
+    cls = np.array([4, 9, 4, 17], np.int32)
+    out, launches = {}, {}
+    for name, device, dtype in (("card", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
+                                ("cpu64", "cpu", torch.float64)):
+        t0 = time.perf_counter()
+        state = damsm_pretrain.init_state(cfg, text, image, device)
+        state.text_encoder.to(dtype)
+        state.image_encoder.to(dtype)
+        reset_counters()
+        metrics = damsm_pretrain.make_train_step(cfg)(state, images, caps.astype(np.int32), lens, cls)
+        if name == "card":
+            launches = counts()
+        grads = {f"text.{k}": p.grad.cpu() for k, p in state.text_encoder.named_parameters()}
+        grads.update({k: p.grad.cpu() for k, p in state.image_encoder.named_parameters() if k.startswith("emb_")})
+        out[name] = ({k: float(v) for k, v in metrics.items()}, grads)
+        log(f"[pretrain card vs cpu] the {name} step in {time.perf_counter() - t0:.1f} s (with its encoders)")
+    require(launches["normalize"] == 1 and launches["avg_pool_3x3_s1_p1"] == 9
+            and launches["avg_pool_3x3_s1_p1_backward"] == 0, f"the card's pretraining step launched {launches}")
+    m_err = max(abs(out["card"][0][k] - v) / max(abs(v), 1.0) for k, v in out["cpu64"][0].items())
+    ratios = {k: within_rounding(out["card"][1][k], out["cpu"][1][k], v) for k, v in out["cpu64"][1].items()}
+    worst = max(ratios, key=ratios.get)
+    log(f"[pretrain card vs cpu] metrics card {out['card'][0]}; largest relative difference from float64 "
+        f"{m_err:.2e}; gradients: the largest card distance to float64 over 3x the CPU f32's, {worst} "
+        f"{ratios[worst]:.3f}")
+    require(m_err <= 1e-4, f"the card's pretraining metrics differ from float64 by {m_err}")
+    require(ratios[worst] <= 1.0, f"the card's pretraining gradient of {worst} is {ratios[worst]:.3f} x the f32 "
+                                  f"rounding away")
+
+
+def check_counter_step_against_cpu() -> None:
+    """(a) One CounterModel step at gf 16, df 16, batch 4 (lambda 5, the
+    encoders at full width) from the same seeded state, batch and noise, on
+    the card twice (K1, K2 and its backward, TF32 off; with cuDNN, as
+    training runs, and without it, torch's own convolutions) against the
+    CPU in f32, each refereed by the CPU in float64.  Each card step: K1
+    once, K2 and its backward 9 times; every metric within 1e-3 relative of
+    float64; the EMA's change within 2% plus two f32 spacings of the CPU's
+    on at least 90% of G's parameters; G's and D's gradient as a whole as
+    close to float64 as 3x the CPU's f32 rounding (``within_rounding``).
+    Without cuDNN every G and D tensor too, its floor ``F32_SUM_ROUNDING``
+    (a bias's gradient summed over 2^18 terms in another order than the
+    CPU) and, for a tensor of fewer than 16 elements, the CPU's rounding of
+    its module as a whole: f32 switches a few ReLUs and max-pool winners of
+    the random InceptionV3 against float64, which moves G's gradient by
+    0.4-2% (L2) in any f32 run, and one or a few elements say little of how
+    far.  cuDNN's algorithms round the MSG D's input gradient more than the
+    CPU's direct sums: the image heads that only the adversarial loss
+    reaches sat 2.6e-4 to 7.4e-4 from float64 with cuDNN against 1e-6 to
+    1.2e-4 on the CPU (up to 6.2x the tensor bound), and within it without."""
+    cfg = trainer.TrainConfig(gan=COUNTER_CHECK_GAN, batch_size=CHECK_BATCH, ntoken=CUB_NTOKEN,
+                              damsm=counter_trainer.default_config().damsm)
+    gan = COUNTER_CHECK_GAN
+    dicts = g_weights.TrainStateDicts(0, g_weights.random_g_state_dict(7, gan, "counter_model"), {},
+                                      g_weights.random_msg_d_state_dict(8, gan.df_dim, gan.embedding_dim))
+    text, image = damsm.random_rnn_state_dict(3, CUB_NTOKEN), damsm.random_cnn_state_dict(3)
+    batch = trainer.synthetic_batch(cfg, np.random.RandomState(93), CHECK_BATCH)
+    z, eps = generate.draw_noise(7, 0, CHECK_BATCH, gan.z_dim, gan.condition_dim, "cpu")
+    out, launches = {}, {}
+    for name, device, dtype in (("card", "cuda", torch.float32), ("card without cuDNN", "cuda", torch.float32),
+                                ("cpu", "cpu", torch.float32), ("cpu64", "cpu", torch.float64)):
+        t0 = time.perf_counter()
+        torch.backends.cudnn.enabled = name != "card without cuDNN"
+        try:
+            models = counter_trainer.build_models(cfg, text, image, device)
+            models = counter_trainer.CounterModels(*(m.to(dtype) for m in models))
+            state = counter_trainer.init_state(cfg, models, dicts=dicts)
+            reset_counters()
+            metrics = counter_trainer.make_train_step(cfg, models)(state, batch, z.to(device, dtype),
+                                                                   eps.to(device, dtype))
+            launches[name] = counts()
+        finally:
+            torch.backends.cudnn.enabled = True
+        grads = {"g": {k: grad_or_zero(p) for k, p in state.gnet.named_parameters()},
+                 "d": {k: grad_or_zero(p) for k, p in state.dnet.named_parameters()}}
+        ema = {k: v.cpu().double() - torch.from_numpy(dicts.g[k]).double() for k, v in state.g_ema.items()}
+        out[name] = ({k: float(v) for k, v in metrics.items()}, grads, ema)
+        log(f"[counter card vs cpu] the {name} step in {time.perf_counter() - t0:.1f} s (with its models)")
+    for card_name in ("card", "card without cuDNN"):
+        tag = f"[counter {card_name} vs cpu]"
+        got = launches[card_name]
+        require(got["normalize"] == 1 and got["avg_pool_3x3_s1_p1"] == 9 and got["avg_pool_3x3_s1_p1_backward"] == 9,
+                f"the {card_name} counter step launched {got}")
+        m_err = max(abs(out[card_name][0][k] - v) / max(abs(v), 1.0) for k, v in out["cpu64"][0].items())
+        log(f"{tag} metrics {out[card_name][0]}; largest relative difference from float64 {m_err:.2e}")
+        require(m_err <= 1e-3, f"the {card_name} counter step's metrics differ from float64 by {m_err}")
+        for part in ("g", "d"):
+            card, cpu, cpu64 = (out[n][1][part] for n in (card_name, "cpu", "cpu64"))
+            rounding = module_rounding(cpu, cpu64)
+            ratios = {part: within_rounding(*(torch.cat([d[k].double().flatten() for k in cpu64])
+                                              for d in (card, cpu, cpu64)), F32_SUM_ROUNDING)}
+            if card_name == "card without cuDNN":
+                ratios.update({k: within_rounding(card[k], cpu[k], v, max(rounding if v.numel() < 16 else 0.0,
+                                                                           F32_SUM_ROUNDING))
+                               for k, v in cpu64.items()})
+            worst = max(ratios, key=ratios.get)
+            log(f"{tag} {part.upper()} gradients: the CPU's f32 {rounding:.2e} (L2) from float64, the card's "
+                f"{module_rounding(card, cpu64):.2e} ({ratios[part]:.3f} of 3x the CPU's); the largest card distance "
+                f"over 3x the CPU f32's, {worst} {ratios[worst]:.3f}")
+            require(ratios[worst] <= 1.0, f"the {card_name} {part.upper()} gradient of {worst} is "
+                                          f"{ratios[worst]:.3f} x the f32 rounding away")
+        agree = moved = total = 0
+        for k, want in out["cpu"][2].items():
+            got_ema = out[card_name][2][k]
+            spacing = torch.from_numpy(np.spacing(np.abs(dicts.g[k]))).double()
+            agree += int(((got_ema - want).abs() <= 0.02 * want.abs() + 2 * spacing).sum())
+            moved, total = moved + int(torch.count_nonzero(got_ema)), total + want.numel()
+        log(f"{tag} the EMA's change agrees with the CPU's on {agree / total:.4%} of G's {total} parameters; it "
+            f"moved {moved / total:.4%} of them")
+        require(agree >= 0.9 * total and moved >= 0.9 * total, f"the {card_name}'s EMA did not follow the CPU's")
+
+
+@contextlib.contextmanager
+def keep_last_step(module, b: dict, key: str):
+    """While a training CLI runs, ``module.make_train_step`` hands out steps
+    that keep their function and the arguments of their last call (the
+    CLI's own state among them) in ``b[key]``: the timings run that step
+    again with nothing rebuilt."""
+    make = module.make_train_step
+
+    def recording(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def run(*step_args):
+            b[key] = functools.partial(step, *step_args)
+            return step(*step_args)
+
+        return run
+
+    module.make_train_step = recording
+    try:
+        yield
+    finally:
+        module.make_train_step = make
+
+
+def run_training_cli(tag: str, main, argv: list, max_epoch: int) -> tuple:
+    """One run of a training CLI from 0 counts -> (its records, launches,
+    seconds), with its time, peak memory and records logged."""
+    reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        run = main(argv + ["--max_epoch", str(max_epoch)])
+    seconds = time.perf_counter() - t0
+    launches = counts()
+    log(f"[{tag}] --max_epoch {max_epoch}: {seconds:.2f} s for {len(run)} epochs of {[r['steps'] for r in run]} "
+        f"steps, peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; by epoch: " + "; ".join(
+            f"{r['seconds']:.2f} s, {r['data_wait_s']:.3f} s waiting for data, " + ", ".join(
+                f"{k} {v:.4f}" for k, v in r["metrics"].items())
+            + (f", valid DAMSM_loss {r['valid']['damsm_loss']:.4f}" if "valid" in r else "") for r in run)
+        + f"; launches {launches}")
+    require(len(run) == (2 if max_epoch == 2 else 1), f"{tag} trained epochs {[r['epoch'] for r in run]} (a resume "
+                                                      f"trains epoch 3 alone)")
+    require(all(np.isfinite(v) for r in run for v in r["metrics"].values()), f"{tag}: a loss is not finite: {run}")
+    return run, launches, seconds
+
+
+def path_damsm_pretrain(b: dict) -> list:
+    """(b) ``models.damsm_pretrain.main`` at full width (the CUB vocabulary,
+    embedding 256, 18 words, 256 px images, batch 64: 4 steps an epoch) from
+    seeded encoders over the layout: 2 epochs with a validation pass over
+    the 64 test images and a snapshot each, then a resume for a third.  Each
+    run launches K1 once and K2 9 times a step and a validation batch and
+    K2's backward never; the losses are finite, the best encoders are
+    written as .npz, only the newest snapshot is kept."""
+    out = os.path.join(b["root"], "damsm")
+    argv = ["--data_dir", b["data"], "--output_dir", out, "--batch_size", str(CUB_TRAIN_BATCH),
+            "--snapshot_interval", "1", "--device", "cuda"]
+    paths, records = [], []
+    for max_epoch in (2, 3):
+        with keep_last_step(damsm_pretrain, b, "pretrain_step") if max_epoch == 3 else contextlib.nullcontext():
+            run, launches, _ = run_training_cli("pretrain", damsm_pretrain.main, argv, max_epoch)
+        steps, val = sum(r["steps"] for r in run), sum(r.get("valid", {}).get("batches", 0) for r in run)
+        require(steps == len(run) * (N_CUB_TRAIN // CUB_TRAIN_BATCH) and val == len(run) * (N_CUB_TEST // CUB_TRAIN_BATCH),
+                f"pretraining ran {steps} steps and {val} validation batches")
+        require(all(np.isfinite(r["valid"]["damsm_loss"]) for r in run), "a validation loss is not finite")
+        require(launches["normalize"] == steps + val and launches["avg_pool_3x3_s1_p1"] == 9 * (steps + val)
+                and launches["avg_pool_3x3_s1_p1_backward"] == 0, f"pretraining launched {launches}")
+        require(sorted(os.listdir(os.path.join(out, "checkpoints"))) == [f"epoch_{max_epoch}.pt"],
+                "only the newest snapshot is kept")
+        records += run
+        paths.append(launches)
+    b["text"], b["image"] = (os.path.join(out, f"best_{k}_encoder.npz") for k in ("text", "image"))
+    require(os.path.isfile(b["text"]) and os.path.isfile(b["image"]), "the best encoders were not written")
+    b["pretrain"] = records
+    return paths
+
+
+def path_counter_train(b: dict) -> list:
+    """(c) ``models.main --model counter_model`` at the JAX CLI's defaults
+    (gf 128, df 64, R_NUM 2, z 100, condition 100, embedding 256, 18 words,
+    seven scales to 256 px, lambda 5, batch 64: 4 steps an epoch) from the
+    pretrained best encoders (.npz): 2 epochs with a snapshot each and a
+    resume for a third; then the generate CLI with ``--model
+    counter_model`` on the third snapshot's EMA .npz for 64 captions.  Each
+    training run launches K1 once (the 256 px image), K2 and its backward 9
+    times a step (the DAMSM encoder on the 256 px fakes) and keeps only its
+    newest snapshot; the losses are finite and the images not flat."""
+    out = os.path.join(b["root"], "counter")
+    argv = ["--model", "counter_model", "--data_dir", b["data"], "--output_dir", out, "--net_e", b["text"],
+            "--image_encoder", b["image"], "--batch_size", str(COUNTER_BATCH), "--caps_per_img", str(CUB_CAPS),
+            "--snapshot_interval", "1", "--num_workers", "8", "--device", "cuda"]
+    paths, records = [], []
+    for max_epoch in (2, 3):
+        with keep_last_step(counter_trainer, b, "counter_step") if max_epoch == 3 else contextlib.nullcontext():
+            run, launches, _ = run_training_cli("counter", train_main.main, argv, max_epoch)
+        steps = sum(r["steps"] for r in run)
+        require(steps == len(run) * (N_CUB_TRAIN // COUNTER_BATCH), f"the counter trained {steps} steps")
+        require(launches["normalize"] == steps and launches["avg_pool_3x3_s1_p1"] == 9 * steps
+                and launches["avg_pool_3x3_s1_p1_backward"] == 9 * steps, f"counter training launched {launches}")
+        require(sorted(os.listdir(os.path.join(out, "checkpoints"))) == [f"epoch_{max_epoch}.npz",
+                                                                         f"epoch_{max_epoch}.pt"],
+                "only the newest snapshot is kept")
+        records += run
+        paths.append(launches)
+    b["counter"] = records
+    gen_dir = os.path.join(out, "generated")
+    run_cli("generate from the counter's EMA snapshot", generate.main, [
+        "--caption_file", b["captions"], "--output_dir", gen_dir, "--checkpoint",
+        os.path.join(out, "checkpoints", "epoch_3.npz"), "--text_encoder", b["text"], "--captions_pickle", b["vocab"],
+        "--model", "counter_model", "--device", "cuda"], N_COUNTER_GEN)
+    images = read_pngs(gen_dir)
+    stds = np.array([a.std() for a in images.values()])
+    require(len(images) == N_COUNTER_GEN and all(a.shape == (256, 256, 3) for a in images.values()),
+            "the counter's generated images")
+    log(f"[counter] {len(images)} images from the EMA snapshot, pixel std {stds.min():.2f}-{stds.max():.2f}")
+    require(stds.min() > 1.0, f"a generated image is flat (pixel std {stds.min():.2f})")
+    return paths
+
+
+def step_events_ms(fn, reps: int = 3) -> list:
+    """CUDA events around each of ``reps`` calls of a whole step."""
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return times
+
+
+def cli_step_timing(b: dict, key: str) -> tuple:
+    """The last step of ``b[key]``'s resumed CLI run, run again on its own
+    state (``keep_last_step``): once under torch's FLOP counter
+    (convolutions and matrix products, forward and backward), then 3 times
+    by events from a reset peak -> (the call, FLOPs, the median ms, the
+    times, peak GiB); and the CLI's own seconds and data wait a step from
+    its records."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    call = b.pop(f"{key}_step")
+    with FlopCounterMode(display=False) as fc:
+        call()
+    torch.cuda.reset_peak_memory_stats()
+    times = step_events_ms(call)
+    steps = sum(r["steps"] for r in b[key])
+    per_step = (sum(r["seconds"] for r in b[key]) / steps, sum(r["data_wait_s"] for r in b[key]) / steps)
+    return call, fc.get_total_flops(), statistics.median(times), times, torch.cuda.max_memory_allocated() / 2 ** 30, \
+        per_step
+
+
+def pretrain_timings(b: dict) -> None:
+    """(d) A pretraining step at full width on a batch of 64 from the layout,
+    f32, TF32 off, on the CLI's own state: its time by events (the median
+    of 3) and on the device (``step_device_time``), its operations against
+    the f32 bound, peak memory; the CLI's time a step and the host's wait
+    for data a step from the runs' records."""
+    pcall, pflops, pms, ptimes, ppeak, per_step = cli_step_timing(b, "pretrain")
+    log(f"[time pretrain] a step at embedding 256, the CUB vocabulary, 256 px, batch {CUB_TRAIN_BATCH}: {pms:.2f} ms "
+        f"by events ({[round(x, 2) for x in ptimes]}; {CUB_TRAIN_BATCH / pms * 1e3:.1f} images/s), "
+        f"{pflops / 1e12:.4f} TFLOP (f32 bound {pflops / PEAK_F32 * 1e3:.2f} ms, "
+        f"{pflops / PEAK_F32 * 1e3 / pms:.1%} of the events' time), peak memory {ppeak:.2f} GiB; in the CLI a step "
+        f"took {per_step[0] * 1e3:.1f} ms with the epochs' first steps and the host waited "
+        f"{per_step[1] * 1e3:.1f} ms a step for data")
+    step_device_time("time pretrain", pcall, pms, pflops)
+    del pcall
+    torch.cuda.empty_cache()
+
+
+def counter_timings(b: dict) -> None:
+    """(d) A CounterModel step at full width on a batch of 64 from the
+    layout, f32, TF32 off, on the CLI's own state: as ``pretrain_timings``,
+    and the G forward by part (``forward_flops``)."""
+    call, flops, ms, times, peak, per_step = cli_step_timing(b, "counter")
+    state, batch, z, eps = call.args
+    gnet = state.gnet
+    with torch.no_grad():
+        caps = torch.from_numpy(batch.captions.astype(np.int64)).cuda()
+        text_encoder = damsm.RNNEncoder.from_state_dict(damsm.load_rnn_state_dict(b["text"]), device="cuda")
+        words, sent = text_encoder(caps, batch.cap_lens)
+        g_parts = forward_flops(gnet, lambda: gnet(z, sent, words, caps == 0, eps))
+    least = flops / PEAK_F32 * 1e3
+    log(f"[time counter] a step at gf 128, df 64, R_NUM 2, seven scales to 256 px, batch {COUNTER_BATCH}: {ms:.1f} ms "
+        f"by events ({[round(x, 1) for x in times]}; {COUNTER_BATCH / ms * 1e3:.1f} images/s), {flops / 1e12:.3f} "
+        f"TFLOP ({flops / COUNTER_BATCH / 1e9:.1f} GFLOP an image; f32 bound {least:.1f} ms, {least / ms:.1%} of the "
+        f"events' time), peak memory {peak:.2f} GiB; G's forward {sum(g_parts.values()) / COUNTER_BATCH / 1e9:.1f} "
+        f"GFLOP an image (" + ", ".join(f"{k} {v / COUNTER_BATCH / 1e9:.1f}" for k, v in sorted(
+            g_parts.items(), key=lambda kv: -kv[1])[:5]) + f"); in models.main a step took "
+        f"{per_step[0] * 1e3:.1f} ms with the epochs' first steps and the host waited "
+        f"{per_step[1] * 1e3:.1f} ms a step for data")
+    step_device_time("time counter", call, ms, flops)
+    del call, state, gnet
+    torch.cuda.empty_cache()
 
 
 L2_BYTES = 50 * 2 ** 20  # the L2 cache of one H100 SXM (NVIDIA's data sheet)
@@ -3428,6 +3851,17 @@ def main() -> None:
     per_path += path_train(tr)
     train_t = train_timings(tr)
     log(f"[train] the training phase took {time.perf_counter() - t_train:.1f} s")
+    t_counter = time.perf_counter()
+    torch.cuda.empty_cache()
+    log(f"[counter] the earlier phases hold {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the card")
+    cb = make_cub_train_data()
+    check_pretrain_step_against_cpu()
+    check_counter_step_against_cpu()
+    per_path += path_damsm_pretrain(cb)
+    pretrain_timings(cb)
+    per_path += path_counter_train(cb)
+    counter_timings(cb)
+    log(f"[counter] the DAMSM pretraining and CounterModel phase took {time.perf_counter() - t_counter:.1f} s")
     shutil.rmtree(SCRATCH)
     pool_device_times(gen)
     epilogue_device_times(gen)

@@ -216,11 +216,11 @@ def test_train_loop_logs_the_jax_keys(tmp_path):
 
 
 def test_main_refuses(tmp_path):
-    """Without a card, ``models.main`` raises unless ``--device cpu`` is
-    given; CounterModel training is not ported and says where it waits."""
+    """``--train false`` says where generation lives; without a card,
+    ``models.main`` raises unless ``--device cpu`` is given."""
     argv = ["--data_dir", str(tmp_path), "--net_e", "x.pth", "--image_encoder", "y.pth"]
-    with pytest.raises(SystemExit, match="Queue 1 item 6"):
-        train_main.main(argv + ["--model", "counter_model", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="models.generate"):
+        train_main.main(argv + ["--train", "false", "--device", "cpu"])
     if torch.cuda.is_available():
         pytest.skip("shows what happens without a CUDA device; one is present")
     with pytest.raises(RuntimeError, match="--device cpu"):

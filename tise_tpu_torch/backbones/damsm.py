@@ -12,6 +12,13 @@ torchvision InceptionV3 trunk -> region features: Mixed_6e (17x17x768)
 through a 1x1 conv to nef = 256 (:218); global features: the final 8x8
 average pool (2048) through a linear layer to nef = 256 (:215).
 
+Each encoder has a no-grad ``forward`` (RP-CUB, the frozen encoders of GAN
+training) and routes under autograd: ``CNNEncoder.encode`` (the GAN's
+DAMSM loss pulls a gradient back to its input) and, for DAMSM pretraining,
+``RNNEncoder.encode`` (to the embedding and the LSTM) and
+``CNNEncoder.encode_heads`` (the frozen trunk under no_grad, the two heads
+under autograd).
+
 The LSTM is the library's ``nn.LSTM`` over ``pack_padded_sequence``: the
 reference's semantics directly.  The JAX package computes it as two masked
 scans over the padded length; its backward scan starts each sequence at its
@@ -36,7 +43,8 @@ from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
 from tise_tpu_torch.backbones import inception_v3
 from tise_tpu_torch.backbones.inception_v3 import InceptionV3
 from tise_tpu_torch.core.config import resolve_device
-from tise_tpu_torch.core.weights import load_pytree_npz, load_torch_state_dict, state_dict_from_jax_params
+from tise_tpu_torch.core.weights import (jax_params_from_state_dict, load_pytree_npz, load_torch_state_dict,
+                                         state_dict_from_jax_params)
 from tise_tpu_torch.ops.preprocess import resize_bilinear_align_corners
 
 IMAGE_SIZE = 299
@@ -72,6 +80,22 @@ class RNNEncoder(nn.Module):
         """captions int [B, T] on the module's device, lengths [B] (each at
         least 1; kept on the host, as ``pack_padded_sequence`` needs them) ->
         (words_emb [B, 2H, T], sent_emb [B, 2H])."""
+        return self._run(captions, lengths)
+
+    def encode(self, captions: torch.Tensor, lengths) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``forward`` under autograd, to the embedding and the LSTM (DAMSM
+        pretraining's route).  cuDNN keeps an RNN's backward for a forward
+        run in train mode, so the LSTM runs in train mode here: one layer
+        has no dropout, so that mode computes what eval mode does, and the
+        embedding's dropout stays the identity, as in the JAX encoder."""
+        was_training = self.rnn.training
+        self.rnn.train()
+        try:
+            return self._run(captions, lengths)
+        finally:
+            self.rnn.train(was_training)
+
+    def _run(self, captions: torch.Tensor, lengths) -> Tuple[torch.Tensor, torch.Tensor]:
         b, t = captions.shape
         lengths = torch.as_tensor(lengths, dtype=torch.int64, device="cpu")
         packed = pack_padded_sequence(self.encoder(captions.long()), lengths, batch_first=True,
@@ -120,8 +144,22 @@ class CNNEncoder(nn.Module):
         with ``requires_grad_(False)``; the BatchNorms are always in eval
         mode).  The resize runs in the input's dtype and the trunk in the
         encoder's: a ``bf16_copy`` takes f32 images and gives bf16 outputs."""
+        return self._heads(self._trunk(x))
+
+    def encode_heads(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``forward`` with the frozen trunk under ``torch.no_grad()`` and the
+        two heads under autograd (DAMSM pretraining's route, which trains
+        ``emb_features`` and ``emb_cnn_code`` only): no graph of the trunk
+        is kept, and no gradient reaches ``x``."""
+        with torch.no_grad():
+            out = self._trunk(x)
+        return self._heads(out)
+
+    def _trunk(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         x = resize_bilinear_align_corners(x, (IMAGE_SIZE, IMAGE_SIZE)).to(self.emb_cnn_code.weight.dtype)
-        out = self.trunk.features(x, endpoints=("mixed6e", "pool3"))
+        return self.trunk.features(x, endpoints=("mixed6e", "pool3"))
+
+    def _heads(self, out: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
         features = self.emb_features(out["mixed6e"].permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         return features, self.emb_cnn_code(out["pool3"])
 
@@ -164,6 +202,28 @@ def cnn_state_dict_from_jax_params(params: Mapping[str, Any]) -> Dict[str, np.nd
     out["emb_cnn_code.weight"] = np.ascontiguousarray(np.asarray(tree["emb_cnn_code"]["kernel"]).T)
     out["emb_cnn_code.bias"] = np.asarray(tree["emb_cnn_code"]["bias"])
     return out
+
+
+def jax_params_from_rnn_state_dict(state: Mapping[str, Any]) -> Dict[str, Any]:
+    """The inverse of ``rnn_state_dict_from_jax_params``: a reference-layout
+    state dict -> the JAX ``RNNEncoder``'s ``{"params": ...}`` tree (numpy
+    leaves), as ``tise_tpu.backbones.damsm.rnn_params_from_torch`` gives it."""
+    bilstm = {f"{jax_name}_{jax_dir}": np.asarray(state[f"rnn.{torch_name}_l0{suffix}"])
+              for jax_dir, suffix in _DIRECTIONS for jax_name, torch_name in _LSTM_PARTS}
+    return {"params": {"embedding": np.asarray(state["encoder.weight"]), "bilstm": bilstm}}
+
+
+def jax_params_from_cnn_state_dict(state: Mapping[str, Any]) -> Dict[str, Any]:
+    """The inverse of ``cnn_state_dict_from_jax_params``: a reference-layout
+    state dict -> the JAX ``CNNEncoder``'s ``{"params": ...}`` tree (numpy
+    leaves), as ``tise_tpu.backbones.damsm.cnn_params_from_torch`` gives it."""
+    trunk = jax_params_from_state_dict({k: v for k, v in state.items() if not k.startswith("emb_")})
+    return {"params": {
+        "trunk": trunk,
+        "emb_features": {"kernel": np.ascontiguousarray(np.transpose(np.asarray(state["emb_features.weight"]),
+                                                                     (2, 3, 1, 0)))},
+        "emb_cnn_code": {"kernel": np.ascontiguousarray(np.asarray(state["emb_cnn_code.weight"]).T),
+                         "bias": np.asarray(state["emb_cnn_code.bias"])}}}
 
 
 def load_rnn_state_dict(path: str) -> Dict[str, np.ndarray]:

@@ -4,7 +4,9 @@ Weights arrive in two layouts:
   * torchvision ``state_dict`` files (.pth), the reference's pretrained
     backbones; the port's modules use this key layout directly;
   * ``.npz`` pytrees (flat {'/'-joined path: array}) written by the JAX
-    package; :func:`state_dict_from_jax_params` carries them across.
+    package; :func:`state_dict_from_jax_params` carries them across, and
+    :func:`jax_params_from_state_dict` and :func:`save_pytree_npz` write
+    them back (DAMSM pretraining's best encoders).
 """
 
 from __future__ import annotations
@@ -12,6 +14,17 @@ from __future__ import annotations
 from typing import Any, Dict, Mapping
 
 import numpy as np
+
+
+def flatten_pytree(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+    """{'a': {'b': x}} -> {'a/b': x}, the JAX package's ``.npz`` keys."""
+    out: Dict[str, np.ndarray] = {}
+    for k in sorted(tree):
+        if isinstance(tree[k], Mapping):
+            out.update(flatten_pytree(tree[k], f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(tree[k])
+    return out
 
 
 def unflatten_pytree(flat: Mapping[str, np.ndarray]) -> Dict[str, Any]:
@@ -28,6 +41,12 @@ def unflatten_pytree(flat: Mapping[str, np.ndarray]) -> Dict[str, Any]:
 def load_pytree_npz(path: str) -> Dict[str, Any]:
     with np.load(path, allow_pickle=False) as f:
         return unflatten_pytree({k: f[k] for k in f.files})
+
+
+def save_pytree_npz(path: str, tree: Mapping[str, Any]) -> None:
+    """A pytree as the JAX package's ``save_pytree_npz`` writes it, so that
+    ``load_pytree_npz`` in either package reads it."""
+    np.savez(path, **flatten_pytree(tree))
 
 
 def load_torch_state_dict(path: str) -> Dict[str, np.ndarray]:
@@ -70,6 +89,32 @@ def state_dict_from_jax_params(params: Mapping[str, Any]) -> Dict[str, np.ndarra
         else:
             walk(tree[k], k)
     return out
+
+
+def jax_params_from_state_dict(state: Mapping[str, Any]) -> Dict[str, Any]:
+    """The inverse of :func:`state_dict_from_jax_params`: a torchvision
+    InceptionV3 state dict (numpy leaves; ``num_batches_tracked`` and
+    ``AuxLogits`` are dropped) -> the JAX package's param tree, without the
+    ``params`` level."""
+    tree: Dict[str, Any] = {}
+    leaves = {"weight": "bn_scale", "bias": "bn_bias", "running_mean": "bn_mean", "running_var": "bn_var"}
+    for key, v in state.items():
+        v = np.asarray(v)
+        if key.startswith("AuxLogits") or key.endswith("num_batches_tracked"):
+            continue
+        if key in ("fc.weight", "fc.bias"):
+            tree.setdefault("fc", {})["kernel" if key == "fc.weight" else "bias"] = np.ascontiguousarray(
+                v.T if key == "fc.weight" else v)
+            continue
+        module, kind, leaf = key.rsplit(".", 2)
+        node = tree
+        for part in module.split("."):
+            node = node.setdefault(part, {})
+        if kind == "conv":
+            node["conv"] = {"kernel": np.ascontiguousarray(np.transpose(v, (2, 3, 1, 0)))}
+        else:
+            node[leaves[leaf]] = v
+    return tree
 
 
 def load_inception_state_dict(path: str) -> Dict[str, np.ndarray]:

@@ -21,7 +21,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from tise_tpu_torch.models.attngan_pp.layers import Block3x3LeakyD, DownBlockD, EncodeBy16, SpectralConv
+from tise_tpu_torch.models.attngan_pp.layers import Block3x3LeakyD, DownBlockD, EncodeBy16, commit_spectral
 
 SCALES = (64, 128, 256)
 
@@ -80,6 +80,4 @@ class DNet(nn.Module):
 
     def commit_spectral(self) -> None:
         """Store the u that calls with ``update_stats`` kept."""
-        for m in self.modules():
-            if isinstance(m, SpectralConv):
-                m.commit_u()
+        commit_spectral(self)

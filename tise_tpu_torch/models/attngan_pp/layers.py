@@ -157,6 +157,21 @@ class SpectralConv(nn.Module):
             self.pending_u = None
 
 
+def commit_spectral(module: nn.Module) -> None:
+    """Store the u that the spectral convs of ``module`` kept pending."""
+    for m in module.modules():
+        if isinstance(m, SpectralConv):
+            m.commit_u()
+
+
+def leaky(x: torch.Tensor) -> torch.Tensor:
+    """LeakyReLU(0.2) in place on a conv's output, which nothing else reads:
+    autograd then keeps one tensor for the activation and the next conv's
+    input, not two (a D pass at 256 px and batch 64 holds gigabytes of
+    them); the values are those of ``F.leaky_relu``."""
+    return F.leaky_relu(x, 0.2, inplace=True)
+
+
 class DownBlockD(nn.Module):
     """Spectral conv4x4 stride 2 + LeakyReLU(0.2) (layers.py:70-74)."""
 
@@ -165,7 +180,7 @@ class DownBlockD(nn.Module):
         self.conv0 = SpectralConv(cin, features, 4, stride=2, padding=1)
 
     def forward(self, x: torch.Tensor, update_stats: bool = False) -> torch.Tensor:
-        return F.leaky_relu(self.conv0(x, update_stats), 0.2)
+        return leaky(self.conv0(x, update_stats))
 
 
 class Block3x3LeakyD(nn.Module):
@@ -176,7 +191,7 @@ class Block3x3LeakyD(nn.Module):
         self.conv0 = SpectralConv(cin, features, 3, stride=1, padding=1)
 
     def forward(self, x: torch.Tensor, update_stats: bool = False) -> torch.Tensor:
-        return F.leaky_relu(self.conv0(x, update_stats), 0.2)
+        return leaky(self.conv0(x, update_stats))
 
 
 class EncodeBy16(nn.Module):

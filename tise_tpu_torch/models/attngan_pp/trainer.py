@@ -114,13 +114,40 @@ class TrainState:
             d.load_state_dict(state["d"][s])
             self.d_opts[s].load_state_dict(state["d_opt"][s])
 
+    @property
+    def device(self) -> torch.device:
+        return next(self.gnet.parameters()).device
+
     def ema_generator_state(self) -> Dict[str, np.ndarray]:
-        """G's state dict with the EMA in place of the parameters (the
-        running statistics are G's own), numpy leaves: what
-        ``weights.save_generator_npz`` writes for the generate CLIs."""
-        out = {k: v.detach().cpu().numpy() for k, v in self.gnet.state_dict().items()}
-        out.update({k: v.detach().cpu().numpy() for k, v in self.g_ema.items()})
-        return out
+        return ema_generator_state(self.gnet, self.g_ema)
+
+
+def ema_generator_state(gnet: torch.nn.Module, g_ema: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """G's state dict with the EMA in place of the parameters (the running
+    statistics are G's own), numpy leaves: what
+    ``weights.save_generator_npz`` writes for the generate CLIs."""
+    out = {k: v.detach().cpu().numpy() for k, v in gnet.state_dict().items()}
+    out.update({k: v.detach().cpu().numpy() for k, v in g_ema.items()})
+    return out
+
+
+def ema_from(gnet: torch.nn.Module, g_ema: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The EMA of G's parameters: ``g_ema``'s arrays where it has them, else
+    copies of G's parameters.  ``torch.tensor`` copies: the EMA is updated in
+    place and must not write into the caller's arrays."""
+    return {k: (torch.tensor(np.asarray(g_ema[k]), dtype=p.dtype, device=p.device) if k in g_ema
+                else p.detach().clone()) for k, p in gnet.named_parameters()}
+
+
+def update_ema(gnet: torch.nn.Module, g_ema: Dict[str, torch.Tensor], decay: float) -> None:
+    """g_ema <- decay g_ema + (1 - decay) G, after G's update (trainer.py:387-388)."""
+    with torch.no_grad():
+        for name, p in gnet.named_parameters():
+            g_ema[name].mul_(decay).add_(p, alpha=1.0 - decay)
+
+
+def adam(module: torch.nn.Module, lr: float, cfg: TrainConfig) -> torch.optim.Adam:
+    return torch.optim.Adam(module.parameters(), lr=lr, betas=(cfg.beta1, cfg.beta2), eps=1e-8)
 
 
 def build_models(cfg: TrainConfig, text_state: Optional[Dict[str, Any]] = None,
@@ -132,22 +159,31 @@ def build_models(cfg: TrainConfig, text_state: Optional[Dict[str, Any]] = None,
     Under ``encoder_precision="fast"`` the image encoder is its bf16 copy."""
     device = resolve_device(device)
     gan = cfg.gan
+    gnet = GNet(gan).to(device).train()
+    dnets = {s: DNet(gan.df_dim, gan.embedding_dim, s).to(device) for s in SCALES[:gan.branch_num]}
+    return Models(gnet, dnets, *frozen_encoders(cfg, text_state, image_state, device))
+
+
+def frozen_encoders(cfg: TrainConfig, text_state: Optional[Dict[str, Any]], image_state: Optional[Dict[str, Any]],
+                    device: torch.device) -> Tuple[damsm.RNNEncoder, damsm.CNNEncoder]:
+    """The frozen DAMSM encoders of the G loss on ``device``, seeded where a
+    state dict is absent; the image encoder's bf16 copy under
+    ``encoder_precision="fast"``."""
+    gan = cfg.gan
     if text_state is None:
         text_state = damsm.random_rnn_state_dict(0, cfg.ntoken, nhidden=gan.embedding_dim // 2)
     if image_state is None:
         image_state = damsm.random_cnn_state_dict(0, nef=gan.embedding_dim)
-    gnet = GNet(gan).to(device).train()
-    dnets = {s: DNet(gan.df_dim, gan.embedding_dim, s).to(device) for s in SCALES[:gan.branch_num]}
     text_encoder = damsm.RNNEncoder.from_state_dict(text_state, device=device).requires_grad_(False)
     image_encoder = damsm.CNNEncoder.from_state_dict(image_state, device=device).requires_grad_(False)
     if cfg.encoder_precision == "fast":
         image_encoder = image_encoder.bf16_copy()
     elif cfg.encoder_precision != "highest":
         raise ValueError(f"unknown encoder_precision {cfg.encoder_precision!r}")
-    return Models(gnet, dnets, text_encoder, image_encoder)
+    return text_encoder, image_encoder
 
 
-def _load(module: torch.nn.Module, state: Dict[str, Any]) -> None:
+def load_strict(module: torch.nn.Module, state: Dict[str, Any]) -> None:
     module.load_state_dict({k: torch.as_tensor(np.asarray(v)) for k, v in state.items()}, strict=True)
 
 
@@ -162,19 +198,11 @@ def init_state(cfg: TrainConfig, models: Models, seed: int = 0,
         dicts = m_weights.TrainStateDicts(
             0, m_weights.random_g_state_dict(seed, gan),
             {}, {s: m_weights.random_d_state_dict(seed + s, gan.df_dim, gan.embedding_dim, s) for s in models.dnets})
-    _load(models.gnet, dicts.g)
+    load_strict(models.gnet, dicts.g)
     for s, d in models.dnets.items():
-        _load(d, dicts.d[s])
-    params = dict(models.gnet.named_parameters())
-    # torch.tensor copies: the EMA is updated in place and must not write into the caller's arrays.
-    g_ema = {k: (torch.tensor(np.asarray(dicts.g_ema[k]), dtype=p.dtype, device=p.device) if k in dicts.g_ema
-                 else p.detach().clone()) for k, p in params.items()}
-
-    def adam(module, lr):
-        return torch.optim.Adam(module.parameters(), lr=lr, betas=(cfg.beta1, cfg.beta2), eps=1e-8)
-
-    return TrainState(dicts.step, models.gnet, adam(models.gnet, cfg.g_lr), g_ema, models.dnets,
-                      {s: adam(d, cfg.d_lr) for s, d in models.dnets.items()})
+        load_strict(d, dicts.d[s])
+    return TrainState(dicts.step, models.gnet, adam(models.gnet, cfg.g_lr, cfg), ema_from(models.gnet, dicts.g_ema),
+                      models.dnets, {s: adam(d, cfg.d_lr, cfg) for s, d in models.dnets.items()})
 
 
 def upload(a, device: torch.device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -250,10 +278,7 @@ def make_train_step(cfg: TrainConfig, models: Models):
                 d.requires_grad_(True)
         state.g_opt.step()
 
-        # ---- EMA of G's parameters (trainer.py:387-388) ----
-        with torch.no_grad():
-            for name, p in gnet.named_parameters():
-                state.g_ema[name].mul_(decay).add_(p, alpha=1.0 - decay)
+        update_ema(gnet, state.g_ema, decay)
         state.step += 1
         return {"g_loss": g_loss.detach(), "d_loss": d_total, "w_loss": w_loss.detach(), "s_loss": s_loss.detach(),
                 "kl_loss": kl.detach(), **metrics}

@@ -11,8 +11,11 @@ is accepted and ignored.
         --image_encoder DAMSMencoders/coco/image_encoder100.pth \\
         --output_dir output/coco_attngan_pp --gf_dim 64 --df_dim 32 --num_residual 3 --words_num 20
 
-``--net_e`` and ``--image_encoder`` take the reference's ``.pth`` or the
-JAX package's ``.npz``.  Snapshots go to ``<output_dir>/checkpoints``: the
+``--model counter_model`` trains the CounterModel (its generator, the MSG
+discriminator, lambda 5) through the same loop; its step uploads and
+normalizes only the batch's 256 px image.  ``--net_e`` and
+``--image_encoder`` take the reference's ``.pth`` or the JAX package's
+``.npz`` (DAMSM pretraining's ``best_*_encoder.npz``).  Snapshots go to ``<output_dir>/checkpoints``: the
 trainer state (``epoch_<n>.pt``, resumed from on the next run) and the EMA
 generator (``epoch_<n>.npz``, the generate CLIs' ``--checkpoint``).
 """
@@ -61,7 +64,8 @@ def get_parameters() -> argparse.ArgumentParser:
     p.add_argument("--smooth_gamma_1", type=float, default=5.0)
     p.add_argument("--smooth_gamma_2", type=float, default=5.0)
     p.add_argument("--smooth_gamma_3", type=float, default=10.0)
-    p.add_argument("--smooth_lambda", type=float, default=1.0)
+    p.add_argument("--smooth_lambda", type=float, default=1.0,
+                   help="the DAMSM weight of AttnGAN++; --model counter_model ignores it and takes 5.0")
     # frozen encoders
     p.add_argument("--net_e", type=str, required=True, help="DAMSM text encoder (.pth/.npz)")
     p.add_argument("--image_encoder", type=str, required=True, help="DAMSM image encoder (.pth/.npz)")
@@ -74,8 +78,6 @@ def main(argv=None) -> list:
     args = get_parameters().parse_args(argv)
     if not args.train:
         raise SystemExit("evaluation-image generation lives in tise_tpu_torch.models.generate")
-    if args.model == "counter_model":
-        raise SystemExit("CounterModel training is not ported yet (ROADMAP.md, Queue 1 item 6)")
     device = resolve_device(args.device)
 
     from tise_tpu_torch.backbones import damsm
@@ -95,14 +97,20 @@ def main(argv=None) -> list:
     gan = GanConfig(gf_dim=args.gf_dim, df_dim=args.df_dim, z_dim=args.z_dim, condition_dim=args.condition_dim,
                     embedding_dim=args.text_emb_dim, r_num=args.num_residual, branch_num=args.num_branch,
                     words_num=args.words_num)
+    module = None
+    lam = args.smooth_lambda
+    if args.model == "counter_model":
+        from tise_tpu_torch.models.counter_model import trainer as module
+
+        lam = module.default_config().damsm.lam
     weights = losses.DamsmWeights(gamma1=args.smooth_gamma_1, gamma2=args.smooth_gamma_2,
-                                  gamma3=args.smooth_gamma_3, lam=args.smooth_lambda)
+                                  gamma3=args.smooth_gamma_3, lam=lam)
     cfg = TrainConfig(gan=gan, batch_size=args.batch_size, g_lr=args.g_lr, d_lr=args.d_lr,
                       max_epoch=args.max_epoch, snapshot_interval=args.snapshot_interval, ntoken=dataset.n_words,
                       damsm=weights, encoder_precision=args.encoder_precision)
     _, records = train(cfg, dataset, args.output_dir, text_state=damsm.load_rnn_state_dict(args.net_e),
                        image_state=damsm.load_cnn_state_dict(args.image_encoder), device=device,
-                       num_workers=args.num_workers)
+                       num_workers=args.num_workers, module=module)
     for r in records:
         print(f"epoch {r['epoch']}: {r['steps']} steps in {r['seconds']:.2f} s, {r['data_wait_s']:.2f} s waiting "
               f"for data; " + ", ".join(f"{k} {v:.4f}" for k, v in r["metrics"].items()))

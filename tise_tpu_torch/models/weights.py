@@ -26,9 +26,12 @@ import numpy as np
 import torch
 from torch import nn
 
+from tise_tpu_torch.backbones import damsm
 from tise_tpu_torch.core.config import resolve_device
+from tise_tpu_torch.core.weights import flatten_pytree
 from tise_tpu_torch.models.attngan_pp.discriminator import DNet
 from tise_tpu_torch.models.attngan_pp.generator import GanConfig, GNet
+from tise_tpu_torch.models.counter_model.discriminator import MSGDNet
 from tise_tpu_torch.models.counter_model.generator import CounterGNet
 
 GENERATORS = {"attngan_pp": GNet, "counter_model": CounterGNet}
@@ -114,18 +117,13 @@ def jax_params_from_g_state_dict(state: Mapping[str, Any]) -> Tuple[Dict[str, An
     return params, batch_stats
 
 
-def flatten_tree(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
-    """{'a': {'b': x}} -> {'a/b': x}, the JAX package's ``.npz`` keys."""
-    return {prefix + "/".join(path): v for path, v in _leaves(tree)}
-
-
 def save_generator_npz(path: str, state: Mapping[str, Any]) -> None:
     """A generator checkpoint in the JAX package's ``.npz`` layout: the
     params under ``g_ema`` and the running statistics under
     ``g_batch_stats``, as ``generate.load_generator_from_checkpoint`` (and
     the JAX CLIs) read it."""
     params, batch_stats = jax_params_from_g_state_dict(state)
-    np.savez(path, **flatten_tree(params, "g_ema/"), **flatten_tree(batch_stats, "g_batch_stats/"))
+    np.savez(path, **flatten_pytree(params, "g_ema/"), **flatten_pytree(batch_stats, "g_batch_stats/"))
 
 
 def random_g_state_dict(seed: int, cfg: GanConfig, model: str = "attngan_pp") -> Dict[str, np.ndarray]:
@@ -179,9 +177,11 @@ def _conv_leaf(leaf: str, v: np.ndarray) -> Tuple[str, np.ndarray]:
 
 
 def d_state_dict_from_jax_params(params: Mapping[str, Any], spectral: Mapping[str, Any]) -> Dict[str, np.ndarray]:
-    """A JAX ``DNet``'s params and its ``spectral`` collection (numpy
-    leaves) -> the port's ``DNet`` state dict: every spectral conv's kernel,
-    bias and u, and the heads' plain ``out`` convs."""
+    """A JAX ``DNet``'s or ``MSGDNet``'s params and its ``spectral``
+    collection (numpy leaves) -> the port's state dict: every spectral
+    conv's kernel, bias and u, and the plain convs (the heads' ``out``,
+    the MSG D's ``fRGB_0``).  A kernel's input channels keep their order:
+    the port concatenates in the JAX order on dim 1."""
     out: Dict[str, np.ndarray] = {}
     for tree in (params.get("params", params), spectral.get("spectral", spectral)):
         for path, v in _leaves(tree):
@@ -192,14 +192,17 @@ def d_state_dict_from_jax_params(params: Mapping[str, Any], spectral: Mapping[st
 
 
 def jax_params_from_d_state_dict(state: Mapping[str, Any]) -> Tuple[Dict[str, Any], Dict[str, Any]]:
-    """The inverse: a ``DNet`` state dict -> (params, spectral) in the JAX
-    tree's layout, numpy leaves."""
+    """The inverse: a ``DNet`` or ``MSGDNet`` state dict -> (params,
+    spectral) in the JAX tree's layout, numpy leaves.  Only the module that
+    holds a leaf is a ``SpectralConv_i`` (the MSG D's ``conv1``/``conv2``
+    blocks keep their names)."""
     params: Dict[str, Any] = {}
     spectral: Dict[str, Any] = {}
     for key, v in state.items():
         prefix, leaf = key.rsplit(".", 1)
         v = np.asarray(v)
-        path = [re.sub(r"^conv(\d+)$", r"SpectralConv_\1", s) for s in prefix.split(".")]
+        *outer, inner = prefix.split(".")
+        path = outer + [re.sub(r"^conv(\d+)$", r"SpectralConv_\1", inner)]
         tree = spectral if leaf == "u" else params
         if leaf == "weight":
             leaf, v = "kernel", np.transpose(v, (2, 3, 1, 0))
@@ -214,8 +217,17 @@ def random_d_state_dict(seed: int, ndf: int, nef: int, scale: int) -> Dict[str, 
     """Seeded discriminator weights made with numpy: conv weights normal with
     std 1/sqrt(fan in) (the variance of Flax's lecun_normal), biases zero,
     every u standard normal."""
+    return _random_d(seed, lambda: DNet(ndf, nef, scale))
+
+
+def random_msg_d_state_dict(seed: int, ndf: int, nef: int) -> Dict[str, np.ndarray]:
+    """The same for the CounterModel's ``MSGDNet``."""
+    return _random_d(seed, lambda: MSGDNet(ndf, nef))
+
+
+def _random_d(seed: int, make) -> Dict[str, np.ndarray]:
     with torch.device("meta"):
-        shapes = {k: tuple(v.shape) for k, v in DNet(ndf, nef, scale).state_dict().items()}
+        shapes = {k: tuple(v.shape) for k, v in make().state_dict().items()}
     rng = np.random.RandomState(seed)
     out: Dict[str, np.ndarray] = {}
     for key, shape in shapes.items():
@@ -232,21 +244,34 @@ def random_d_state_dict(seed: int, ndf: int, nef: int, scale: int) -> Dict[str, 
 
 class TrainStateDicts(NamedTuple):
     """The trainable state as state dicts: G's (parameters and running
-    statistics), the EMA of G's parameters (parameter names only), and each
-    scale's D (parameters and u).  Adam's moments are not carried: they
-    start at zero in both packages."""
+    statistics), the EMA of G's parameters (parameter names only), and the
+    Ds (parameters and u): one a scale by scale for AttnGAN++, the one MSG D
+    for the CounterModel.  Adam's moments are not carried: they start at
+    zero in both packages."""
 
     step: int
     g: Dict[str, np.ndarray]
     g_ema: Dict[str, np.ndarray]
-    d: Dict[int, Dict[str, np.ndarray]]
+    d: Any  # Dict[int, state dict] (attngan_pp) or one state dict (counter_model)
 
 
 def train_state_dicts_from_jax(state: Any, model: str = "attngan_pp") -> TrainStateDicts:
-    """The JAX trainer's ``TrainState`` (numpy leaves, as ``jax.device_get``
-    gives them) -> the port's ``TrainStateDicts``."""
+    """The JAX trainer's ``TrainState`` or ``CounterTrainState`` (numpy
+    leaves, as ``jax.device_get`` gives them) -> the port's
+    ``TrainStateDicts``; the CounterModel's ``d_params`` is one tree."""
     g = g_state_dict_from_jax_params(state.g_params, state.g_batch_stats, model)
     ema = g_state_dict_from_jax_params(state.g_ema, {}, model)
     ema = {k: v for k, v in ema.items() if not k.endswith("num_batches_tracked")}
-    d = {int(k): d_state_dict_from_jax_params(state.d_params[k], state.d_spectral[k]) for k in state.d_params}
+    if model == "counter_model":
+        d = d_state_dict_from_jax_params(state.d_params, state.d_spectral)
+    else:
+        d = {int(k): d_state_dict_from_jax_params(state.d_params[k], state.d_spectral[k]) for k in state.d_params}
     return TrainStateDicts(int(np.asarray(state.step)), g, ema, d)
+
+
+def damsm_state_dicts_from_jax(state: Any) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+    """The JAX ``DamsmTrainState``'s ``rnn_params`` and ``cnn_params``
+    (numpy leaves) -> (text encoder, image encoder) state dicts in the
+    reference's layout, which ``models.damsm_pretrain.init_state`` loads
+    (the trunk and both heads)."""
+    return damsm.rnn_state_dict_from_jax_params(state.rnn_params), damsm.cnn_state_dict_from_jax_params(state.cnn_params)
