@@ -11,9 +11,10 @@ point a user would call, at the full width of InceptionV3 at 299 x 299 with
 seeded random weights (BatchNorm statistics calibrated on seeded images) and
 of CLIP ViT-B/32 at 224 x 224:
 
-  * FID (``metrics.fid.main``) on two seeded folders of 20,480 PNGs with
-    ``--sqrtm ns-pallas``, again from the two folders' statistics with
-    ``--sqrtm scipy``, and a short O-FID pass through the same engine;
+  * FID (``metrics.fid.main``) on two seeded folders of 8,192 PNGs: each
+    folder's statistics with ``--save_stats``, the distance from them with
+    ``--sqrtm ns-pallas`` and again with ``--sqrtm scipy``, and a short
+    O-FID pass through the same engine;
   * FID with ``--precision fast --device-resize-from 64`` on the same folders
     (native 64 x 64 uint8 up, normalize and resize on the device, bf16 folded
     trunk), held against the f32 host-resize value;
@@ -64,7 +65,8 @@ of CLIP ViT-B/32 at 224 x 224:
     and host decode at 448 timed;
   * the COCO track runner (``benchmark.main(["--track", "coco", ...])``)
     over the reference's layout built from the earlier phases' data and
-    weights (256 images): all nine stages, the methods JSON and the RS table
+    weights (128 images; FID and O-FID by ``--sqrtm eigh``): all nine
+    stages, the methods JSON and the RS table
     with the 11 published methods; a ``--resume`` that parses every stage;
     and a ``--resume`` without ``crop.done``, in which crop, O-IS and O-FID
     run again;
@@ -102,6 +104,18 @@ of CLIP ViT-B/32 at 224 x 224:
     df 64, R_NUM 2, batch 64, lambda 5) from the pretrained best encoders
     (2 epochs and a resume), the generate CLI on its EMA snapshot; each
     step's time by events and on the device, its operations and peak
+    memory;
+  * two ranks on the one card, fresh processes of this script
+    (``--rank R --world 2 --port P``) joined by ``torch.distributed``: the
+    f32 FID CLI on 2 x 1,024 of the FID images and RP-COCO on 512 CLIP
+    items with ``--coordinator``, each rank's result file byte-equal to a
+    one-process run; the sharded AttnGAN++ step
+    (``trainer.make_sharded_train_step``) at the published COCO width and a
+    global batch of 64, 32 a rank, 2 steps over gloo (the ranks share the
+    card), held to the one-process step with the same step without cuDNN as
+    the referee of f32 rounding, both ranks ending with the same state; one
+    step through a one-rank NCCL group held the same way; the backends,
+    each rank's seconds by stage, the step's time by events and peak
     memory.
 
 Launch counters, set to 0 before each path and read after it, show that each
@@ -119,8 +133,9 @@ each trunk and thin shape prints its time against its bytes bound.  For the five
 library calls it also prints the host's time per call (a host clock around
 1,000 calls with no synchronise inside) beside the event time; the kernels'
 own durations from ``torch.profiler`` (K2's shapes and sets, K1, the probes
-beside their library calls) come last, after every other timing, so that a
-reader can tell the host's share from the device's.
+beside their library calls) come after every other timing of this process, so
+that a reader can tell the host's share from the device's; only the
+two-rank phase follows them, whose ranks are fresh processes.
 
 Output: one line per check, the card's name and power limit as nvidia-smi
 gives them, a ``{"kernels": [...]}`` JSON line, and as the last line
@@ -177,15 +192,15 @@ from tise_tpu_torch.ops.pallas_kernels import (KERNEL_INSTANCES, epilogue_matmul
 from tise_tpu_torch.ops.preprocess import RECIPES, normalize_kernel, normalize_plain, resize_and_normalize
 from tise_tpu_torch.tools import mosaic_probe, stem_mm_probe
 from tise_tpu_torch.tools.kernel_compare import (POOL_SHAPES, PROFILE_TRIES, STEM_NSTEPS, THIN_POOL_SHAPES, device_us,
-                                                 host_us)
+                                                 host_us, whole)
 
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SCRATCH = os.path.join(ROOT, "build", "chip_smoke")
-# per side: five times the 2048 features, so each sample covariance keeps
-# its smallest eigenvalues within about a third of the population's
-# (Marchenko–Pastur: (1 - 5^-1/2)^2) and f32 Newton–Schulz converges on it
-N_IMAGES = 10240
+# per side: four times the 2048 features, so each sample covariance keeps
+# its smallest eigenvalues within about a quarter of the population's
+# (Marchenko–Pastur: (1 - 4^-1/2)^2) and f32 Newton–Schulz converges on it
+N_IMAGES = 8192
 N_COCO = 5120      # IS* COCO: every image is scored
 N_CUB = 2600       # IS* CUB: shuffled, then the tail beyond 40 batches of 64 is dropped
 N_CROPS = 256      # O-FID and O-IS
@@ -519,10 +534,49 @@ def against(us, bound_ms: float) -> str:
     return f"{us / 1e3:.5f} ms against a bound of {bound_ms:.5f} ms ({bound_ms * 1e3 / us:.1%} of it)"
 
 
+def required_us(fn, what: str, calls: int = 20) -> tuple:
+    """(µs of one call, where it was read) for a reading the run requires:
+    from torch.profiler (``device_us``), or, where the profiler records no
+    kernel in PROFILE_TRIES runs, from CUDA events (``median_ms``, launch
+    gaps included), which the line then names."""
+    us = device_us(fn, calls=calls)
+    if us is not None:
+        return us, "torch.profiler"
+    log(f"[profiler] recorded no kernel of {what} in {PROFILE_TRIES} profiled runs: timed by CUDA events instead")
+    return median_ms(fn) * 1e3, "CUDA events: torch.profiler recorded none"
+
+
+def warm_profiler() -> None:
+    """torch.profiler, late in this process, has come back without device
+    rows (PERF.md §6): empty PyTorch's cache of
+    device memory (the training phases leave most of the card reserved),
+    then profile one small kernel, one session at a time, until three
+    sessions in a row record it (at most 20); say how many came back empty
+    and what was free on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    free0, reserved0 = torch.cuda.mem_get_info()[0], torch.cuda.memory_reserved()
+    torch.cuda.empty_cache()
+    free1 = torch.cuda.mem_get_info()[0]
+    x = torch.randn(1024, 1024, device="cuda")
+    sessions = empty = streak = 0
+    while streak < 3 and sessions < 20:
+        sessions += 1
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            x.mul(2.0)
+            torch.cuda.synchronize()
+        seen = any(getattr(e, "device_time_total", 0) > 0 for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+        streak, empty = (streak + 1, empty) if seen else (0, empty + 1)
+    log(f"[profiler] warm-up: {empty} of {sessions} sessions came back without device rows; the card had "
+        f"{free0 / 2 ** 30:.2f} GiB free with {reserved0 / 2 ** 30:.2f} GiB in PyTorch's cache, {free1 / 2 ** 30:.2f} "
+        f"GiB free after emptying it")
+
+
 def pool_device_times(gen: torch.Generator) -> None:
     """K2's duration on the device from torch.profiler: each trunk and thin
     shape, the nine pools of a batch and the nine thin pools, against their
-    bytes bounds.  Run last, with probe_device_times."""
+    bytes bounds.  Run with probe_device_times."""
     for label, shapes in (("the nine pools of one f32 batch", POOL_SHAPES), ("the nine thin pools", THIN_POOL_SHAPES)):
         xs, least = [], bound(sum(n * 2 * torch.Size(s).numel() * 4 for s, n in shapes))["bound_ms"]
         for shape, per_batch in shapes:
@@ -537,15 +591,15 @@ def pool_device_times(gen: torch.Generator) -> None:
 
 def epilogue_device_times(gen: torch.Generator) -> None:
     """K3 at the main path's n = 2048 on the device from torch.profiler,
-    beside ``torch.addmm``'s, against its operations bound (required).  Run
-    last, with probe_device_times."""
+    beside ``torch.addmm``'s, against its operations bound (required: CUDA
+    events stand in where the profiler records none).  Run with
+    probe_device_times."""
     n = 2048
     a, b = (torch.randn(n, n, generator=gen, device="cuda") for _ in range(2))
     eye = 1.5 * torch.eye(n, device="cuda")
-    us = device_us(lambda: epilogue_matmul_kernel(a, b, 1.5, -0.5), calls=5)
-    require(us is not None, f"torch.profiler recorded no K3 kernel in {PROFILE_TRIES} profiled runs")
+    us, src = required_us(lambda: epilogue_matmul_kernel(a, b, 1.5, -0.5), "K3", calls=5)
     lib_us = device_us(lambda: torch.addmm(eye, a, b, beta=1.0, alpha=-0.5), calls=5)
-    log(f"[K3 epilogue_matmul] n=2048 on the device (torch.profiler): "
+    log(f"[K3 epilogue_matmul] n=2048 on the device ({src}): "
         f"{against(us, bound(3 * n * n * 4, 2 * n ** 3, PEAK_F32)['bound_ms'])}; torch.addmm "
         f"{'not measured' if lib_us is None else f'{lib_us / 1e3:.5f} ms'}")
 
@@ -553,38 +607,37 @@ def epilogue_device_times(gen: torch.Generator) -> None:
 def normalize_device_times(gen: torch.Generator, floor_us: float) -> None:
     """K1's duration on the device from torch.profiler in each case of
     NORMALIZE_TIMED, against its bytes bound and in launch floors, beside its
-    library call's.  K1's readings are required: a profiler that records none
-    fails the run.  Run last, with probe_device_times."""
+    library call's.  K1's readings are required: where the profiler records
+    none, CUDA events stand in (``required_us``).  Run with
+    probe_device_times."""
     xs = normalize_inputs(gen)
     for label, recipe, dtype in NORMALIZE_TIMED:
         x, library = xs[label], normalize_library_call(recipe, dtype)
-        us = device_us(lambda: normalize_kernel(x, recipe, dtype))
-        require(us is not None, f"torch.profiler recorded no K1 kernel at {label} in {PROFILE_TRIES} profiled runs")
+        us, src = required_us(lambda: normalize_kernel(x, recipe, dtype), f"K1 at {label}")
         lib_us = device_us(lambda: library(x))
-        log(f"[K1 normalize] {recipe} {str(dtype)[6:]} {list(x.shape)} on the device (torch.profiler): "
+        log(f"[K1 normalize] {recipe} {str(dtype)[6:]} {list(x.shape)} on the device ({src}): "
             f"{against(us, bound(normalize_bytes(x, dtype))['bound_ms'])}, {us / floor_us:.2f} launch floors; "
             f"torch.addcmul {'not measured' if lib_us is None else f'{lib_us / 1e3:.5f} ms'}")
 
 
 def launch_floor() -> float:
     """The device time of the smallest launch the port can make: P3's kernel
-    on an f32 [1, 2] input, one block and one element (torch.profiler).
-    Required."""
+    on an f32 [1, 2] input, one block and one element (torch.profiler;
+    required, so CUDA events stand in where it records none)."""
     x = torch.randn(1, 2, device="cuda")
     got = mosaic_probe.strided_slice_kernel(x)
     require(torch.equal(got, mosaic_probe.strided_slice_plain(x)), "P3 on [1, 2] disagrees with its plain version")
-    us = device_us(lambda: mosaic_probe.strided_slice_kernel(x))
-    require(us is not None, f"torch.profiler recorded no kernel for the launch floor in {PROFILE_TRIES} profiled runs")
-    log(f"[launch floor] P3 strided_slice on f32 [1, 2] (one block, one element) on the device (torch.profiler): "
+    us, src = required_us(lambda: mosaic_probe.strided_slice_kernel(x), "the launch floor")
+    log(f"[launch floor] P3 strided_slice on f32 [1, 2] (one block, one element) on the device ({src}): "
         f"{us:.3f} us")
     return us
 
 
 def probe_device_times(floor_us: float) -> None:
     """The duration on the device of each probe kernel and of its library
-    call, from torch.profiler, and the kernel's in launch floors.  Run last:
-    nothing timed by events or by the host's clock comes after the profiler
-    has been on."""
+    call, from torch.profiler, and the kernel's in launch floors.  Run after
+    the paths' timings: of this process's times by events or by the host's
+    clock, only phase (10)'s come after the profiler has been on."""
     library = probe_library_calls()
     for name, (kernel, *_) in mosaic_probe.PROBES.items():
         x = torch.from_numpy(mosaic_probe.probe_input(name, seed=1)).cuda()
@@ -841,41 +894,40 @@ def read_fid(path: str) -> float:
 
 
 def path_fid_f32(d: dict, state_dict) -> dict:
-    """FID in f32 with host resize and the K3 square root, its stages one by
-    one, the scipy run from cached statistics, and a short O-FID pass."""
-    saved = os.path.join(SCRATCH, "fid_ns_pallas.txt")
+    """FID in f32 with host resize through the CLI, stage by stage: each
+    folder's statistics (``--save_stats``: extraction and ``np.cov``), then
+    the distance from them with the K3 square root, again with ``scipy``,
+    and with ``ns`` and ``eigh`` from the same statistics; a short O-FID
+    pass."""
     reset_counters()
+    stage, npz = {}, {}
+    for side in ("a", "b"):
+        npz[side] = os.path.join(SCRATCH, f"{side}.npz")
+        t0 = time.perf_counter()
+        fid.main(["--path1", d[side], "--save_stats", npz[side], "--weights", d["weights"],
+                  "--batch-size", str(BATCH)])
+        torch.cuda.synchronize()
+        stage[f"extract_{side}"] = time.perf_counter() - t0
+    saved = os.path.join(SCRATCH, "fid_ns_pallas.txt")
     t0 = time.perf_counter()
-    fid.main(["--path1", d["a"], "--path2", d["b"], "--weights", d["weights"], "--sqrtm", "ns-pallas",
-              "--batch-size", str(BATCH), "--saved_file", saved])
+    fid.main(["--path1", npz["a"], "--path2", npz["b"], "--sqrtm", "ns-pallas", "--saved_file", saved])
     torch.cuda.synchronize()
-    t_cli = time.perf_counter() - t0
+    stage["frechet_ns_pallas_cli"] = time.perf_counter() - t0
+    t_cli = sum(stage.values())
     launches = counts()
     rate = 2 * N_IMAGES / t_cli
-    log(f"[fid ns-pallas] CLI {t_cli:.2f} s ({rate:.1f} images/s end to end); launches {launches}")
+    log(f"[fid ns-pallas] CLI {t_cli:.2f} s ({rate:.1f} images/s end to end: each folder's statistics, then the "
+        f"distance from them); launches {launches}")
     batches = 2 * -(-N_IMAGES // BATCH)
     require(launches["normalize"] == batches, f"K1 launched once per batch ({batches})")
     require(launches["avg_pool_3x3_s1_p1"] == 9 * batches, f"K2 launched 9x per batch ({9 * batches})")
     require(launches["epilogue_matmul"] == 30, "K3 launched once per Newton–Schulz step (30)")
     fid_ns_pallas = read_fid(saved)
-
-    # --- the same stages timed one by one; the scipy run reads their stats ---
-    extractor = fid.make_pool3_extractor(state_dict, "cuda")
-    stage, acts = {}, {}
-    for side in ("a", "b"):
-        t0 = time.perf_counter()
-        acts[side] = extractor.run(ImageFolderLoader.from_dir(d[side], BATCH, fid.IMAGE_SIZE), keys=("pool3",))["pool3"]
-        stage[f"extract_{side}"] = time.perf_counter() - t0
-        require(acts[side].shape == (N_IMAGES, 2048) and np.isfinite(acts[side]).all(), f"pool3 of {side}")
-    t0 = time.perf_counter()
-    (m1, s1), (m2, s2) = stats.exact_stats(acts["a"]), stats.exact_stats(acts["b"])
-    stage["stats"] = time.perf_counter() - t0
-    npz_a, npz_b = os.path.join(SCRATCH, "a.npz"), os.path.join(SCRATCH, "b.npz")
-    result_io.save_stats_npz(npz_a, m1, s1)
-    result_io.save_stats_npz(npz_b, m2, s2)
+    (m1, s1), (m2, s2) = (result_io.load_stats_npz(npz[side]) for side in ("a", "b"))
+    require(all(np.isfinite(x).all() for x in (m1, s1, m2, s2)), "the statistics are finite")
     saved = os.path.join(SCRATCH, "fid_scipy.txt")
     t0 = time.perf_counter()
-    fid.main(["--path1", npz_a, "--path2", npz_b, "--sqrtm", "scipy", "--saved_file", saved])
+    fid.main(["--path1", npz["a"], "--path2", npz["b"], "--sqrtm", "scipy", "--saved_file", saved])
     stage["frechet_scipy_cli"] = time.perf_counter() - t0
     fid_scipy = result_io.read_fid_result(saved)
     values = {}
@@ -884,6 +936,7 @@ def path_fid_f32(d: dict, state_dict) -> dict:
         values[method] = sqrtm.frechet_distance(m1, s1, m2, s2, method=method, device="cuda")
         torch.cuda.synchronize()
         stage[f"frechet_{method}"] = time.perf_counter() - t0
+    extractor = fid.make_pool3_extractor(state_dict, "cuda")
     img_s = 2 * N_IMAGES / (stage["extract_a"] + stage["extract_b"])
     log("[stages] " + ", ".join(f"{k} {v:.3f} s" for k, v in stage.items()) + f"; extraction {img_s:.1f} images/s")
     # where the extraction time goes: the host loader alone, the device forward alone
@@ -1381,7 +1434,7 @@ def clip_checks(c: dict) -> dict:
 def clip_device_times(t: dict) -> None:
     """Each tower's time on the device per batch of 64 (torch.profiler: the
     sum of its kernels) beside its time by events from clip_checks: where the
-    two differ, the host's launches set the pace.  Run last, with
+    two differ, the host's launches set the pace.  Run with
     probe_device_times."""
     with torch.inference_mode():
         for name, s in t["scorers"].items():
@@ -1721,7 +1774,9 @@ def run_runner(tag: str, argv: list) -> tuple:
 def path_cub_runner(c: dict, rp_text: str) -> list:
     """``bird_val.npz`` from the reference folder through the FID CLI's
     ``--save_stats``; FID and IS* CUB through their CLIs on the images; then
-    ``benchmark.main(["--track", "cub", ...])`` over the layout: FID, IS*
+    ``benchmark.main(["--track", "cub", ...])`` over the layout (FID by
+    ``--sqrtm eigh`` in both: phase (1) holds ``scipy``'s root, which takes
+    some 20 s on the host each time, against K3's and ``eigh``'s): FID, IS*
     and RP all present, no ``FAIL``, each within 1e-6 relative of its CLI run
     on the same inputs (RP: the highest run of path_rp_cub); then a
     ``--resume`` rerun that parses all three stages and launches nothing.
@@ -1731,7 +1786,7 @@ def path_cub_runner(c: dict, rp_text: str) -> list:
         ("stats", lambda: fid.main(["--path1", c["reference"], "--save_stats", c["stats"],
                                     "--weights", c["fid_weights"]])),
         ("FID", lambda: fid.main(["--path1", c["stats"], "--path2", c["images"], "--weights", c["fid_weights"],
-                                  "--saved_file", os.path.join(c["root"], "fid.txt")])),
+                                  "--sqrtm", "eigh", "--saved_file", os.path.join(c["root"], "fid.txt")])),
         ("IS*", lambda: is_star.main(["--image_folder", c["images"], "--flavor", "cub", "--weights", c["slim"],
                                       "--saved_file", os.path.join(c["root"], "is_star.txt")])),
     )
@@ -1746,7 +1801,7 @@ def path_cub_runner(c: dict, rp_text: str) -> list:
     direct["IS*"] = read_value(os.path.join(c["root"], "is_star.txt"), result_io.read_is_result)
     direct["RP"] = float(rp_text[len("R mean:"):].split()[0]) * 100
     argv = ["--track", "cub", "--method_name", "smoke", "--images", c["images"], "--data_root", c["data"],
-            "--weights_root", c["weights"], "--output_root", os.path.join(c["root"], "results")]
+            "--weights_root", c["weights"], "--output_root", os.path.join(c["root"], "results"), "--sqrtm", "eigh"]
     out = {tag: run_runner(f"cub runner {tag}", argv + extra) for tag, extra in (("run", []), ("resume", ["--resume"]))}
     values, text, launches, t_run = out["run"]
     per_path.append(launches)
@@ -2433,7 +2488,7 @@ def ca_timings(c: dict) -> dict:
 # 9. the COCO track runner: nine stages, the methods JSON and the RS table
 # ---------------------------------------------------------------------------
 
-N_COCO_RUN = 256          # the runner's images: the first CA items'
+N_COCO_RUN = 128          # the runner's images: the first CA items'
 #: BASELINE.md's 11 published methods (the reference's COCO table), ranked beside the smoke's
 PUBLISHED = {"GAN-CLS": (8.10, 192.09, 10.00, 5.31, 5.71, 2.46, 51.13, 2.51, 32.79),
              "StackGAN": (15.50, 53.44, 9.10, 9.24, 9.90, 3.36, 29.09, 2.41, 34.33),
@@ -2450,11 +2505,11 @@ PUBLISHED = {"GAN-CLS": (8.10, 192.09, 10.00, 5.31, 5.71, 2.46, 51.13, 2.51, 32.
 
 def make_coco_layout(d: dict, clip: dict, det: dict, cad: dict) -> dict:
     """The reference's COCO layout under build/chip_smoke/coco/, from the
-    earlier phases' data and weights (hard links): the first 256 CA images
+    earlier phases' data and weights (hard links): the first 128 CA images
     and their CA items; RP items for them over the CLIP phase's captions; the
     PA phase's pickle and phrase folders; the first image of each of SOA's
     80 label folders; as ``coco_val.npz`` the statistics of path_fid_f32's
-    20,480 images of side a (with 256 images a side both covariances are
+    N_IMAGES images of side a (with 128 images a side both covariances are
     singular and ``scipy``'s square root of their product comes out complex:
     the FID CLI refuses it, in the JAX package too) and
     ``cropped_object_coco.npz`` from crops_b through the O-FID CLI; the FID,
@@ -2518,7 +2573,8 @@ def make_coco_layout(d: dict, clip: dict, det: dict, cad: dict) -> dict:
 
 
 def path_coco_runner(lay: dict) -> list:
-    """``benchmark.main(["--track", "coco", ...])`` over the layout: all nine
+    """``benchmark.main(["--track", "coco", ...])`` over the layout, FID and
+    O-FID by ``--sqrtm eigh`` (see path_cub_runner): all nine
     stages run (no FAIL, no SKIP), every value finite, the methods JSON their
     2-decimal rounding, the RS table the port's ranking of the methods dir
     with the run among the 11 published methods; then a ``--resume`` that
@@ -2527,7 +2583,7 @@ def path_coco_runner(lay: dict) -> list:
     same values.  Returns the launches of the two runs that ran stages."""
     argv = ["--track", "coco", "--method_name", "smoke", "--images", lay["images"], "--soa_images", lay["soa"],
             "--pa_images", lay["pa"], "--data_root", lay["data"], "--weights_root", lay["weights"],
-            "--output_root", lay["results"], "--methods_dir", lay["methods"]]
+            "--output_root", lay["results"], "--methods_dir", lay["methods"], "--sqrtm", "eigh"]
     values, text, launches, _ = run_runner("coco runner run", argv)
     out = os.path.join(lay["results"], "smoke")
     with open(os.path.join(out, "timings.json")) as f:
@@ -3209,7 +3265,7 @@ def train_device_times(gen: torch.Generator, floor_us: float, t: dict) -> None:
     before each call, and warm), and the whole train step on
     the device (torch.profiler): each beside its bound (and K1 beside
     torch.addcmul), the step beside its time by events and its device idle
-    share.  Run last, with the other device times."""
+    share.  Run with the other device times."""
     xs = []
     for shape, per_batch in POOL_SHAPES:
         g = torch.randn(shape, generator=gen, device="cuda")
@@ -3231,11 +3287,10 @@ def train_device_times(gen: torch.Generator, floor_us: float, t: dict) -> None:
         x = torch.randint(0, 256, (TRAIN_BATCH, side, side, 3), generator=gen, device="cuda", dtype=torch.uint8)
         b = bound(normalize_bytes(x, torch.float32))["bound_ms"]
         k, lib = median_ms(lambda: normalize_kernel(x, "half")), median_ms(lambda: library(x))
-        cold, lib_cold = cold_device_us(lambda: normalize_kernel(x, "half"), empty), cold_device_us(
-            lambda: library(x), empty)
+        (cold, src), lib_cold = required_cold_us(lambda: normalize_kernel(x, "half"), empty, f"K1 at {list(x.shape)}"), \
+            cold_device_us(lambda: library(x), empty)
         warm, lib_warm = device_us(lambda: normalize_kernel(x, "half")), device_us(lambda: library(x))
-        require(cold is not None, f"torch.profiler recorded no K1 kernel at {list(x.shape)} in {PROFILE_TRIES} runs")
-        log(f"[K1 normalize] half float32 {list(x.shape)} (training) on the device (torch.profiler), L2 emptied by "
+        log(f"[K1 normalize] half float32 {list(x.shape)} (training) on the device ({src}), L2 emptied by "
             f"a 256 MB read before each call: {against(cold, b)}, {cold / floor_us:.2f} launch floors; "
             f"torch.addcmul {'not measured' if lib_cold is None else f'{lib_cold / 1e3:.5f} ms'}; the same buffers "
             f"call after call {against(warm, b)}, torch.addcmul "
@@ -3690,28 +3745,41 @@ def cold_device_us(fn, empty, calls: int = 20):
     none."""
     from torch.profiler import ProfilerActivity, profile
 
-    def kernels(body) -> dict:
+    def kernels(body) -> list:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 body()
             torch.cuda.synchronize()
-        return {e.key: getattr(e, "device_time_total", 0) for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA}
+        return [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
 
     fn()
     empty()
     torch.cuda.synchronize()
     flush_kernels = set()
     for _ in range(PROFILE_TRIES):  # a profiled run may come back without its device rows, as device_us allows
-        flush_kernels = set(kernels(empty))
-        if flush_kernels:
+        rows = kernels(empty)
+        if whole(rows, calls):
+            flush_kernels = {e.key for e in rows}
             break
-    require(bool(flush_kernels), "torch.profiler recorded no kernel of the L2 flush")
+    if not flush_kernels:
+        return None
     for _ in range(PROFILE_TRIES):
-        total = sum(t for k, t in kernels(lambda: (empty(), fn())).items() if k not in flush_kernels)
-        if total > 0:
-            return total / calls
+        rows = [e for e in kernels(lambda: (empty(), fn())) if e.key not in flush_kernels]
+        if whole(rows, calls):
+            return sum(getattr(e, "device_time_total", 0) for e in rows) / calls
     return None
+
+
+def required_cold_us(fn, empty, what: str) -> tuple:
+    """``cold_device_us`` for a reading the run requires, as ``required_us``:
+    where the profiler records none, CUDA events around the flush and the
+    call, less the flush's own."""
+    us = cold_device_us(fn, empty)
+    if us is not None:
+        return us, "torch.profiler"
+    log(f"[profiler] recorded no kernel of {what} after the L2 flush in {PROFILE_TRIES} profiled runs: timed by "
+        f"CUDA events instead")
+    return (median_ms(lambda: (empty(), fn())) - median_ms(empty)) * 1e3, "CUDA events: torch.profiler recorded none"
 
 
 def cub_device_times(gen: torch.Generator, half: dict, floor_us: float, t: dict) -> None:
@@ -3721,7 +3789,7 @@ def cub_device_times(gen: torch.Generator, half: dict, floor_us: float, t: dict)
     each call by a read of 256 MB; the K1 cases of NORMALIZE_TIMED under
     ``clip`` cold as well.  Their bytes fit in L2, where the repeated calls
     find them.  Then the DAMSM image and text encoders a block of 32 on the
-    device beside their time by events.  Run last, with
+    device beside their time by events.  Run with
     probe_device_times."""
     flush = torch.zeros(64 * 2 ** 20, device="cuda")  # 256 MB of f32
     empty = lambda: flush.sum()  # noqa: E731
@@ -3734,15 +3802,14 @@ def cub_device_times(gen: torch.Generator, half: dict, floor_us: float, t: dict)
         require(normalize_bytes(x, dtype) <= L2_BYTES, f"K1 {label} does not fit in L2")
         least = bound(normalize_bytes(x, dtype))["bound_ms"]
         if recipe == "half":
-            warm, lib_warm = device_us(lambda: normalize_kernel(x, recipe, dtype)), device_us(lambda: library(x))
-            require(warm is not None, f"torch.profiler recorded no K1 kernel at {label} in {PROFILE_TRIES} runs")
-            log(f"[K1 normalize] {label} on the device (torch.profiler), the same buffers call after call: "
+            (warm, src), lib_warm = required_us(lambda: normalize_kernel(x, recipe, dtype), f"K1 at {label}"), \
+                device_us(lambda: library(x))
+            log(f"[K1 normalize] {label} on the device ({src}), the same buffers call after call: "
                 f"{against(warm, least)}, {warm / floor_us:.2f} launch floors; torch.addcmul "
                 f"{'not measured' if lib_warm is None else f'{lib_warm / 1e3:.5f} ms'}")
-        cold = cold_device_us(lambda: normalize_kernel(x, recipe, dtype), empty)
-        require(cold is not None, f"torch.profiler recorded no K1 kernel at {label} in {PROFILE_TRIES} runs")
+        cold, src = required_cold_us(lambda: normalize_kernel(x, recipe, dtype), empty, f"K1 at {label}")
         lib_cold = cold_device_us(lambda: library(x), empty)
-        log(f"[K1 normalize] {label} on the device (torch.profiler), L2 emptied by a 256 MB read before each "
+        log(f"[K1 normalize] {label} on the device ({src}), L2 emptied by a 256 MB read before each "
             f"call: {against(cold, least)}, {cold / floor_us:.2f} launch floors; torch.addcmul "
             f"{'not measured' if lib_cold is None else f'{lib_cold / 1e3:.5f} ms'}")
     del flush
@@ -3762,7 +3829,7 @@ def ca_device_times(gen: torch.Generator, floor_us: float, t: dict) -> None:
     a 256 MB read before each call as well; beside torch.addcmul's time, its
     bytes bound and in launch floors.  Then the counter's forward and peak
     stimulation a batch of 32 on the device, beside their times by events.
-    Run last, with probe_device_times."""
+    Run with probe_device_times."""
     x = torch.randint(0, 256, (CA_BATCH, ca.IMAGE_SIZE, ca.IMAGE_SIZE, 3), generator=gen, device="cuda",
                       dtype=torch.uint8)
     require(normalize_bytes(x, torch.float32) > L2_BYTES, "K1 at CA's shape fits in L2")
@@ -3770,10 +3837,9 @@ def ca_device_times(gen: torch.Generator, floor_us: float, t: dict) -> None:
     empty = lambda: flush.sum()  # noqa: E731
     library = normalize_library_call("imagenet")
     least = bound(normalize_bytes(x, torch.float32))["bound_ms"]
-    cold = cold_device_us(lambda: normalize_kernel(x, "imagenet"), empty)
-    require(cold is not None, f"torch.profiler recorded no K1 kernel at CA's shape in {PROFILE_TRIES} runs")
+    cold, src = required_cold_us(lambda: normalize_kernel(x, "imagenet"), empty, "K1 at CA's shape")
     lib_cold = cold_device_us(lambda: library(x), empty)
-    log(f"[K1 normalize] imagenet float32 {list(x.shape)} on the device (torch.profiler), cold (L2 emptied before "
+    log(f"[K1 normalize] imagenet float32 {list(x.shape)} on the device ({src}), cold (L2 emptied before "
         f"each call): {against(cold, least)}, {cold / floor_us:.2f} launch floors; torch.addcmul "
         f"{'not measured' if lib_cold is None else f'{lib_cold / 1e3:.5f} ms'}")
     del flush
@@ -3786,8 +3852,309 @@ def ca_device_times(gen: torch.Generator, floor_us: float, t: dict) -> None:
                 f"by events")
 
 
+# ---------------------------------------------------------------------------
+# 13. multi-process: the FID and RP-COCO CLIs and the sharded AttnGAN++ step
+#     on two ranks of the card (torch.distributed)
+# ---------------------------------------------------------------------------
+
+MULTI = os.path.join(SCRATCH, "multi")
+MULTI_WORLD = 2
+MULTI_IMAGES = 1024       # FID's images a side, the first of phase (1)'s folders
+MULTI_RP = 512            # RP-COCO's items, the first of the CLIP phase's
+MULTI_BATCH = 64          # the sharded step's global batch: 32 a rank
+MULTI_STEPS = 2
+MULTI_TIMEOUT = 600       # s for both ranks together
+#: the sharded step against the one-process step: 3x the CPU test's bound of 4x the one-process step's
+#: f32 rounding (tests/test_torch_multihost_train.py), the rounding here being the one-process step's
+#: distance to the same step without cuDNN (no float64 step at this width fits beside it)
+MULTI_BOUND = 12.0
+MULTI_MODULES = ("g", "d64", "d128", "d256")
+
+
+def multi_world() -> tuple:
+    """The sharded step's world, the same from its seeds in every process:
+    (config, seeded G and D state, the encoders' seeded state dicts, the
+    global batches, the global noise of each step)."""
+    cfg = trainer.TrainConfig(gan=TRAIN_GAN, batch_size=MULTI_BATCH, ntoken=gen_bench.COCO_NTOKEN)
+    dicts = g_weights.TrainStateDicts(0, g_weights.random_g_state_dict(7, TRAIN_GAN), {}, {
+        s: g_weights.random_d_state_dict(7 + s, TRAIN_GAN.df_dim, TRAIN_GAN.embedding_dim, s) for s in (64, 128, 256)})
+    encoders = (damsm.random_rnn_state_dict(0, gen_bench.COCO_NTOKEN, nhidden=TRAIN_GAN.embedding_dim // 2),
+                damsm.random_cnn_state_dict(0, nef=TRAIN_GAN.embedding_dim))
+    batches = [trainer.synthetic_batch(cfg, np.random.RandomState(90 + k), MULTI_BATCH) for k in range(MULTI_STEPS)]
+    noise = [generate.draw_noise(9, k, MULTI_BATCH, TRAIN_GAN.z_dim, TRAIN_GAN.condition_dim, "cpu")
+             for k in range(MULTI_STEPS)]
+    return cfg, dicts, encoders, batches, noise
+
+
+def multi_steps(cfg, models, dicts, batches, noise, group, steps: int = MULTI_STEPS) -> tuple:
+    """``steps`` steps from the seeded state, sharded over ``group`` (one
+    process for ``None``) -> (per step: the metrics, each module's gradient,
+    G's running statistics and the Ds' u, each as one vector on the host;
+    the steps' ms by events; ``state_digest`` of the state they leave)."""
+    device = next(models.gnet.parameters()).device
+    state = trainer.init_state(cfg, models, dicts=dicts)
+    step = trainer.make_sharded_train_step(cfg, models, group)
+    rows = trainer.local_rows(MULTI_BATCH, group)
+    records, times = [], []
+    for batch, (z, eps) in list(zip(batches, noise))[:steps]:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = step(state, trainer.shard_batch(batch, group), z[rows].to(device), eps[rows].to(device))
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        modules = {"g": state.gnet, **{f"d{s}": d for s, d in state.dnets.items()}}
+        records.append({
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            **{k: torch.cat([p.grad.reshape(-1) for p in m.parameters()]).cpu() for k, m in modules.items()},
+            "stats": torch.cat([v.reshape(-1) for k, v in state.gnet.state_dict().items()
+                                if k.endswith(("running_mean", "running_var"))]).cpu(),
+            "u": torch.cat([v.reshape(-1) for d in state.dnets.values()
+                            for k, v in d.state_dict().items() if k.endswith(".u")]).cpu()})
+    return records, times, state_digest(state)
+
+
+def multi_ratios(got: list, one: list, plain: list) -> dict:
+    """Per step and module, the L2 distance of ``got`` to the one-process
+    step over MULTI_BOUND x (the one-process step's distance to the same step
+    without cuDNN + 1e-5 of its norm): at most 1 passes; the metrics'
+    largest distance relative to max(|one-process|, 1) over 3e-4 (3x the
+    CPU test's 1e-4)."""
+    out = {}
+    for k, (g, o, p) in enumerate(zip(got, one, plain)):
+        out[f"step{k + 1}.metrics"] = max(abs(g["metrics"][m] - v) / max(abs(v), 1.0)
+                                          for m, v in o["metrics"].items()) / 3e-4
+        for name in (*MULTI_MODULES, "stats", "u"):
+            a, b, c = (x[name].double() for x in (g, o, p))
+            out[f"step{k + 1}.{name}"] = float((a - b).norm()) / (
+                MULTI_BOUND * (float((b - c).norm()) + 1e-5 * float(b.norm())) + 1e-300)
+    return out
+
+
+def state_digest(state) -> str:
+    """sha256 of every parameter, buffer and EMA tensor a step leaves."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for module in (state.gnet, *state.dnets.values()):
+        for v in module.state_dict().values():
+            h.update(v.detach().cpu().numpy().tobytes())
+    for v in state.g_ema.values():
+        h.update(v.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def rank_main(rank: int, world: int, port: int) -> None:
+    """One rank of phase (10), started by ``path_multi``: the FID and RP-COCO
+    CLIs with ``--coordinator`` (the first joins the cluster), then the
+    sharded step on the group ``parallel.step_group`` picks (gloo: the ranks
+    share the card); writes its seconds by stage, the step's ms by events,
+    peak memory, the group's backend, its launch counts and a digest of its
+    state to ``MULTI/rank<rank>.json``, and rank 0 its step records."""
+    import torch.distributed as dist
+
+    from tise_tpu_torch import parallel
+
+    configure_precision("highest")
+    with open(os.path.join(MULTI, "plan.json")) as f:
+        plan = json.load(f)
+    flags = ["--coordinator", f"127.0.0.1:{port}", "--num-processes", str(world), "--process-id", str(rank)]
+    out = {"seconds": {}}
+    reset_counters()
+    for tag, main_fn, argv in (("fid", fid.main, plan["fid"]), ("rp", rp_coco.main, plan["rp"])):
+        t0 = time.perf_counter()
+        main_fn([*argv, os.path.join(MULTI, f"{tag}_rank{rank}.txt"), *flags])
+        torch.cuda.synchronize()
+        out["seconds"][tag] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    device = torch.device("cuda", torch.cuda.current_device())
+    group = parallel.step_group(device)
+    out["backend"] = dist.get_backend(group)
+    cfg, dicts, (text_state, image_state), batches, noise = multi_world()
+    models = trainer.build_models(cfg, text_state, image_state, device)
+    out["seconds"]["step world"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    records, out["step_ms"], out["digest"] = multi_steps(cfg, models, dicts, batches, noise, group)
+    out["seconds"]["steps"] = time.perf_counter() - t0
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["launches"] = counts()
+    if rank == 0:
+        torch.save(records, os.path.join(MULTI, "rank0_records.pt"))
+    with open(os.path.join(MULTI, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def start_ranks(world: int) -> list:
+    """``world`` fresh processes of this script in rank mode on the card,
+    each with its log file; ``wait_ranks`` ends them."""
+    port = free_port()
+    procs = []
+    for rank in range(world):
+        log_file = open(os.path.join(MULTI, f"rank{rank}.log"), "w")
+        procs.append((subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank", str(rank), "--world",
+                                        str(world), "--port", str(port)], cwd=ROOT, stdout=log_file,
+                                       stderr=subprocess.STDOUT), log_file))
+    return procs
+
+
+def wait_ranks(procs: list, deadline: float) -> None:
+    """Wait for the ranks of ``start_ranks``; all are killed when one fails
+    or the monotonic clock passes ``deadline``, and none outlives this call."""
+    failed = None
+    try:
+        while failed is None and any(p.poll() is None for p, _ in procs):
+            failed = next((f"rank {r} exited with {p.returncode}" for r, (p, _) in enumerate(procs)
+                           if p.poll() not in (None, 0)), None)
+            if time.monotonic() > deadline:
+                failed = f"the ranks did not end within {MULTI_TIMEOUT} s of their start"
+            time.sleep(0.5)
+        failed = failed or next((f"rank {r} exited with {p.returncode}" for r, (p, _) in enumerate(procs)
+                                 if p.returncode != 0), None)
+    finally:
+        for p, log_file in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log_file.close()
+    for rank in range(len(procs)):
+        with open(os.path.join(MULTI, f"rank{rank}.log")) as f:
+            for line in f.read().splitlines()[-40 if failed else -8:]:
+                log(f"[multi rank {rank}] {line}")
+    require(failed is None, f"phase (10): {failed}")
+
+
+def path_multi(d: dict, c: dict, smi: str) -> list:
+    """(10) Two ranks on the one card, in fresh processes joined by
+    ``torch.distributed`` at 127.0.0.1 (gloo; the kernels were built by
+    ``setup``): the f32 FID CLI on the first 1,024 images of phase (1)'s
+    two folders (the extractor's shard and allgather, K1 ``fid`` and K2)
+    and the RP-COCO CLI on the first 512 CLIP items (the items sharded, the
+    bank replicated, K1 ``clip``): each rank's result file byte-equal to the
+    one-process run here, made while the ranks run; then the sharded
+    AttnGAN++ step at the published COCO width (gf 64, df 32, R_NUM 3,
+    256 px), global batch 64, 32 a rank, 2 steps over the gloo group
+    (through the host), held to the one-process step (``multi_ratios``),
+    both ranks ending with the same state.  After the ranks have ended,
+    here: the one-process step, the same step without cuDNN (the referee of
+    f32 rounding), and one step through a one-rank NCCL group, held the
+    same way.  Returns each rank's launch counts."""
+    import torch.distributed as dist
+
+    from tise_tpu_torch import parallel
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    log(f"[multi] {smi}; the earlier phases hold {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the card")
+    os.makedirs(MULTI)
+    folders = {}
+    for side in ("a", "b"):
+        folders[side] = os.path.join(MULTI, side)
+        os.makedirs(folders[side])
+        for name in sorted(os.listdir(d[side]))[:MULTI_IMAGES]:
+            os.link(os.path.join(d[side], name), os.path.join(folders[side], name))
+    rp_items = os.path.join(MULTI, "rp.pkl")
+    result_io.save_pickle(rp_items, c["items"][:MULTI_RP])
+    plan = {"fid": ["--path1", folders["a"], "--path2", folders["b"], "--weights", d["weights"], "--sqrtm", "eigh",
+                    "--batch-size", str(BATCH), "--saved_file"],
+            "rp": ["--image_dir", c["images"], "--weights", c["weights"], "--bpe_path", c["bpe"],
+                   "--rp_input_file", rp_items, "--batch_size", str(BATCH), "--saved_file_path"]}
+    with open(os.path.join(MULTI, "plan.json"), "w") as f:
+        json.dump(plan, f)
+    seconds = {}
+    t_ranks = time.perf_counter()
+    procs = start_ranks(MULTI_WORLD)
+    deadline = time.monotonic() + MULTI_TIMEOUT
+    try:  # the one-process CLI runs here while the ranks start up and run theirs
+        for tag, main_fn in (("fid", fid.main), ("rp", rp_coco.main)):
+            t0 = time.perf_counter()
+            main_fn([*plan[tag], os.path.join(MULTI, f"{tag}_one.txt")])
+            torch.cuda.synchronize()
+            seconds[tag] = time.perf_counter() - t0
+    except BaseException:
+        for p, log_file in procs:
+            p.kill()
+            p.wait()
+            log_file.close()
+        raise
+    wait_ranks(procs, deadline)
+    seconds["ranks"] = time.perf_counter() - t_ranks
+
+    cfg, dicts, (text_state, image_state), batches, noise = multi_world()
+    models = trainer.build_models(cfg, text_state, image_state, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    one, one_ms, _ = multi_steps(cfg, models, dicts, batches, noise, None)
+    peak_one = torch.cuda.max_memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    torch.backends.cudnn.enabled = False
+    try:
+        plain, plain_ms, _ = multi_steps(cfg, models, dicts, batches, noise, None)
+    finally:
+        torch.backends.cudnn.enabled = True
+    seconds["no-cudnn steps"] = time.perf_counter() - t0
+    parallel.init_distributed(f"127.0.0.1:{free_port()}", 1, 0, "cuda")
+    try:
+        nccl_group = parallel.step_group(torch.device("cuda", torch.cuda.current_device()))
+        nccl_backend = dist.get_backend(nccl_group)
+        require(nccl_backend == "nccl", f"one rank with a card of its own took {nccl_backend}, not nccl")
+        nccl, nccl_ms, _ = multi_steps(cfg, models, dicts, batches, noise, nccl_group, steps=1)
+    finally:
+        dist.destroy_process_group()
+    del models
+    torch.cuda.empty_cache()
+    log(f"[multi] here: FID CLI {seconds['fid']:.2f} s and RP-COCO CLI {seconds['rp']:.2f} s in one process (beside "
+        f"the ranks, which took {seconds['ranks']:.1f} s from their start to their end); the "
+        f"one-process step at batch {MULTI_BATCH} {[round(x, 1) for x in one_ms]} ms by events (peak "
+        f"{peak_one:.2f} GiB), without cuDNN {[round(x, 1) for x in plain_ms]} ms "
+        f"({seconds['no-cudnn steps']:.1f} s); the one-rank {nccl_backend} step {[round(x, 1) for x in nccl_ms]} ms")
+    ratios = multi_ratios(nccl, one, plain)
+    worst = max(ratios, key=ratios.get)
+    log(f"[multi nccl] the one-rank NCCL step against the one-process step, each over its bound: "
+        f"{ {k: round(v, 4) for k, v in ratios.items()} }")
+    require(ratios[worst] <= 1.0, f"the one-rank NCCL step's {worst} is {ratios[worst]:.3f} x its bound")
+
+    ranks = []
+    for rank in range(MULTI_WORLD):
+        with open(os.path.join(MULTI, f"rank{rank}.json")) as f:
+            ranks.append(json.load(f))
+        for tag in ("fid", "rp"):
+            with open(os.path.join(MULTI, f"{tag}_rank{rank}.txt"), "rb") as f, \
+                    open(os.path.join(MULTI, f"{tag}_one.txt"), "rb") as g:
+                require(f.read() == g.read(), f"rank {rank}'s {tag} result file differs from one process's")
+        r = ranks[-1]
+        log(f"[multi rank {rank}] {smi}; the step's group {r['backend']}; seconds by stage "
+            f"{ {k: round(v, 2) for k, v in r['seconds'].items()} }; the step at {MULTI_BATCH // MULTI_WORLD} a rank "
+            f"{[round(x, 1) for x in r['step_ms']]} ms by events (two ranks sharing one card: not a two-card rate); "
+            f"peak {r['peak_gib']:.2f} GiB; launches {r['launches']}")
+    require(all(r["backend"] == "gloo" for r in ranks), "ranks sharing one card must step over gloo")
+    require(ranks[0]["digest"] == ranks[1]["digest"], "the ranks ended the sharded step with different states")
+    ratios = multi_ratios(torch.load(os.path.join(MULTI, "rank0_records.pt")), one, plain)
+    worst = max(ratios, key=ratios.get)
+    log(f"[multi] FID and RP-COCO result files byte-equal on both ranks and in one process; the two-rank step "
+        f"against the one-process step, each over its bound: { {k: round(v, 4) for k, v in ratios.items()} }; "
+        f"both ranks' states equal (sha256 {ranks[0]['digest'][:16]})")
+    require(ratios[worst] <= 1.0, f"the two-rank step's {worst} is {ratios[worst]:.3f} x its bound")
+    for r in ranks:
+        require(r["launches"]["normalize"] > 0 and r["launches"]["avg_pool_3x3_s1_p1"] > 0
+                and r["launches"]["avg_pool_3x3_s1_p1_backward"] == 9 * MULTI_STEPS, f"a rank launched {r['launches']}")
+    log(f"[multi] phase (10) took {time.perf_counter() - t_phase:.1f} s ({seconds['ranks']:.1f} s of it the ranks, "
+        f"with the one-process CLI runs beside them)")
+    return [r["launches"] for r in ranks]
+
+
 def main() -> None:
     t_start = time.perf_counter()
+    mark = lambda what: log(f"[elapsed] {time.perf_counter() - t_start:.1f} s at the end of {what}")  # noqa: E731
     smi = setup()
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {
@@ -3798,14 +4165,17 @@ def main() -> None:
         **check_layout_probes(),
         "stem_mm": check_stem_mm(),
     }
+    mark("the kernel checks")
     d = make_data()
     state_dict = fid.load_weights(d["weights"], "weights")
     check_trunks_against_cpu(state_dict)
     f32 = path_fid_f32(d, state_dict)
     per_path = [f32["launches"], path_fid_fast(d, state_dict, f32), path_is_star(d), path_o_is(d), path_probes()]
+    mark("the Inception paths")
     c = make_clip_data()
     per_path += [path_rp(c), path_pa(c)]
     towers = clip_checks(c)
+    mark("the CLIP paths")
     t_cub = time.perf_counter()
     half = check_normalize_half(gen)
     cub = make_cub_data(d)
@@ -3862,7 +4232,8 @@ def main() -> None:
     per_path += path_counter_train(cb)
     counter_timings(cb)
     log(f"[counter] the DAMSM pretraining and CounterModel phase took {time.perf_counter() - t_counter:.1f} s")
-    shutil.rmtree(SCRATCH)
+    mark("the training phases")
+    warm_profiler()
     pool_device_times(gen)
     epilogue_device_times(gen)
     floor_us = launch_floor()
@@ -3872,6 +4243,11 @@ def main() -> None:
     cub_device_times(gen, half, floor_us, encoders)
     ca_device_times(gen, floor_us, counter_t)
     train_device_times(gen, floor_us, train_t)
+    mark("the device times")
+    # after the profiler: with phase (10) before them, torch.profiler here came back without device rows
+    # for many of its readings (NVIDIA H100 80GB HBM3, 700.00 W); its ranks are fresh processes
+    per_path += path_multi(d, c, smi)
+    shutil.rmtree(SCRATCH)
     kernels = []
     for name, (_, route, source, replaces) in KERNELS.items():
         launches = sum(p[name] for p in per_path)
@@ -3886,4 +4262,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+    if "--rank" in sys.argv:  # one rank of phase (10), started by path_multi
+        args = dict(zip(sys.argv[1::2], map(int, sys.argv[2::2])))
+        sys.exit(rank_main(args["--rank"], args["--world"], args["--port"]))
     sys.exit(main())

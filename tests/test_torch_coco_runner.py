@@ -282,6 +282,28 @@ def test_runner_resume_runs_again_downstream_of_a_stage_that_ran(stubbed):
         os.rename(stubbed["root"] / "results", stubbed["root"] / f"results_{package}")
 
 
+def test_runner_passes_sqrtm_to_fid_and_o_fid_only(stubbed):
+    """``--sqrtm eigh`` (a flag of the port's runner only) reaches the FID and
+    O-FID stages and no other, each argv otherwise the JAX runner's default
+    one; it is recorded in run_config.json, and a ``--resume`` without it is
+    refused."""
+    jbench.main(stubbed["argv"] + ["--methods_dir", str(stubbed["methods"])])
+    jax_calls = [c[1:] for c in stubbed["calls"]]
+    shutil.rmtree(stubbed["root"] / "results")
+    stubbed["calls"].clear()
+    argv = stubbed["argv"] + ["--methods_dir", str(stubbed["methods"]), "--device", "cpu"]
+    tbench.main(argv + ["--sqrtm", "eigh"])
+    port_calls = [c[1:] for c in stubbed["calls"]]
+    assert [n for n, _ in port_calls] == [n for n, _ in jax_calls] == STAGES
+    for (name, jargv), (_, targv) in zip(jax_calls, port_calls):
+        sq = ["--sqrtm", "eigh"] if name in ("fid", "o_fid") else []
+        assert targv == jargv + sq + ["--device", "cpu"], name
+    with open(stubbed["out"] / "run_config.json") as f:
+        assert json.load(f)["sqrtm"] == "eigh"
+    with pytest.raises(SystemExit, match="resume refused"):
+        tbench.main(argv + ["--resume"])
+
+
 def test_runner_resume_parses_every_stage(stubbed):
     both = _run_both(stubbed)
     os.rename(stubbed["root"] / "results_torch", stubbed["root"] / "results")

@@ -313,7 +313,8 @@ def test_port_imports_no_jax():
         "                 'models.attngan_pp.discriminator', 'models.attngan_pp.losses',\n"
         "                 'models.attngan_pp.trainer', 'models.attngan_pp.train_loop', 'models.datasets',\n"
         "                 'models.main', 'models.sampling', 'models.damsm_pretrain',\n"
-        "                 'models.counter_model.discriminator', 'models.counter_model.trainer'):\n"
+        "                 'models.counter_model.discriminator', 'models.counter_model.trainer',\n"
+        "                 'parallel', 'parallel.multihost'):\n"
         "    assert 'tise_tpu_torch.' + required in names, required\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"

@@ -240,3 +240,20 @@ def test_stem_probe_entry_point_needs_the_card():
         tstem.main([])
     with pytest.raises(SystemExit):
         tstem.main(["--device", "cpu"])
+
+
+@pytest.mark.parametrize("rows, whole", [
+    ([(40, 12.0), (20, 3.0)], True),     # two kernels a call, every launch recorded
+    ([(7, 2.5)], False),                 # 7 of 20 launches recorded
+    ([(40, 12.0), (13, 1.0)], False),    # one kernel's records partly dropped
+    ([], False),                         # no device rows at all
+    ([(20, 0.0)], False),                # rows with no device time
+])
+def test_device_us_reads_only_profiles_with_every_launch(rows, whole):
+    """``kernel_compare.whole``: a profiled run of 20 calls is read only
+    where each kernel shows up a multiple of 20 times with some device time."""
+    from types import SimpleNamespace
+
+    from tise_tpu_torch.tools.kernel_compare import whole as complete
+
+    assert complete([SimpleNamespace(count=c, device_time_total=t) for c, t in rows], 20) is whole

@@ -358,6 +358,18 @@ def test_runner_builds_the_jax_runners_argv_and_device(stubbed, extra):
         assert targv == jargv + ["--device", "cpu"], name
 
 
+def test_runner_passes_sqrtm_to_fid_only(stubbed):
+    """``--sqrtm eigh`` (a flag of the port's runner only) reaches the FID
+    stage alone, each argv otherwise the JAX runner's default one."""
+    jbench.main(stubbed["argv"])
+    tbench.main(stubbed["argv"] + ["--sqrtm", "eigh", "--device", "cpu"])
+    jcalls = [(n, a) for p, n, a in stubbed["calls"] if p == "jax"]
+    tcalls = [(n, a) for p, n, a in stubbed["calls"] if p == "torch"]
+    assert [n for n, _ in tcalls] == [n for n, _ in jcalls] == ["fid", "is_star", "rp"]
+    for (name, jargv), (_, targv) in zip(jcalls, tcalls):
+        assert targv == jargv + (["--sqrtm", "eigh"] if name == "fid" else []) + ["--device", "cpu"], name
+
+
 def test_runner_resume_parses_finished_stages(stubbed):
     """A resumed run parses the stages whose result exists and runs again
     exactly the one whose result is lost and the one whose result does not

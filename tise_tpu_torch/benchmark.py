@@ -5,13 +5,14 @@ and RP (DAMSM) (README.md:178-433 of the reference).
     python -m tise_tpu_torch.benchmark --track coco --method_name my_model \\
         --images gen/coco --soa_images gen/soa --pa_images gen/pa \\
         --data_root data --weights_root weights --output_root results \\
-        [--precision fast] [--only fid,is_star] [--skip soa] [--resume] [--device cuda]
+        [--precision fast] [--sqrtm eigh] [--only fid,is_star] [--skip soa] [--resume] [--device cuda]
     python -m tise_tpu_torch.benchmark --track cub --method_name my_model \\
         --images gen/cub --data_root data --weights_root weights --output_root results
 
 Each stage runs one of the port's metric CLIs over the standard data and
 weights layout (the reference's download layout; ``DATA``/``WEIGHTS``) with
-the JAX runner's argv and ``--device`` appended, then parses its result file
+the JAX runner's argv and ``--device`` appended (and ``--sqrtm`` on FID and
+O-FID where it is not ``scipy``), then parses its result file
 back.  A stage whose inputs are missing, or that needs a stage that did not
 complete (O-IS and O-FID need crop), is skipped with a note; a stage that
 fails prints ``FAIL`` and the run goes on.  The values go to
@@ -131,6 +132,12 @@ class Plan:
         return values
 
 
+def _sqrtm_flags(args) -> List[str]:
+    """The FID and O-FID stages' ``--sqrtm``, passed only when it is not the
+    reference's ``scipy`` (the JAX runner has no such flag)."""
+    return ["--sqrtm", args.sqrtm] if args.sqrtm != "scipy" else []
+
+
 def _coco_plan(args, out: str) -> Plan:
     """The nine-metric COCO track, with tise_tpu/benchmark.py's argv
     (:146-302) and ``--device``."""
@@ -145,6 +152,7 @@ def _coco_plan(args, out: str) -> Plan:
     # the detection stages' presets, passed only when they differ from the CLIs' defaults
     det = (["--roi-sampling", str(args.roi_sampling)] if args.roi_sampling != 2 else []) + (
         ["--proposals", str(args.proposals)] if args.proposals != 1000 else [])
+    sq = _sqrtm_flags(args)
     dev = ["--device", args.device]
     crops_dir = os.path.join(out, "crops")
     crop_done = os.path.join(out, "crop.done")
@@ -161,7 +169,7 @@ def _coco_plan(args, out: str) -> Plan:
         [args.images, d("coco_fid_stats"), w("inception")],
         lambda: fid.main(["--path1", d("coco_fid_stats"), "--path2", args.images,
                           "--saved_file", txt("fid"), "--weights", w("inception"),
-                          "--snapshot_dir", out] + prec + bs + dev),
+                          "--snapshot_dir", out] + prec + bs + sq + dev),
         lambda: {"FID": result_io.read_fid_result(txt("fid"))},
         result=txt("fid"),
     ))
@@ -236,7 +244,7 @@ def _coco_plan(args, out: str) -> Plan:
         "o_fid",
         [d("o_fid_stats"), w("inception_80")],
         lambda: o_fid.main(["--path1", d("o_fid_stats"), "--path2", crops_dir, "--saved_file", txt("o_fid"),
-                            "--weights", w("inception_80"), "--snapshot_dir", out] + prec + bs + dev),
+                            "--weights", w("inception_80"), "--snapshot_dir", out] + prec + bs + sq + dev),
         lambda: {"O-FID": result_io.read_fid_result(txt("o_fid"))},
         after=("crop",),
         result=txt("o_fid"),
@@ -255,6 +263,7 @@ def _cub_plan(args, out: str) -> Plan:
     # the FID CLI keeps the reference's dashed --batch-size (fid_score.py:53), the others underscore
     bs = ["--batch-size", str(args.batch_size)] if args.batch_size else []
     bs_u = ["--batch_size", str(args.batch_size)] if args.batch_size else []
+    sq = _sqrtm_flags(args)
     dev = ["--device", args.device]
     plan = Plan()
 
@@ -266,7 +275,7 @@ def _cub_plan(args, out: str) -> Plan:
         [args.images, d("cub_fid_stats"), w("inception")],
         lambda: fid.main(["--path1", d("cub_fid_stats"), "--path2", args.images,
                           "--saved_file", txt("fid"), "--weights", w("inception"),
-                          "--snapshot_dir", out] + tail + bs + dev),
+                          "--snapshot_dir", out] + tail + bs + sq + dev),
         lambda: {"FID": result_io.read_fid_result(txt("fid"))},
         result=txt("fid"),
     ))
@@ -326,6 +335,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
                    help="(coco) ROIAlign samples a bin of the soa and crop stages; 1 is the fast preset")
     p.add_argument("--proposals", type=int, default=1000,
                    help="(coco) post-NMS RPN proposals of the soa and crop stages; 256 is the fast preset")
+    p.add_argument("--sqrtm", choices=("scipy", "eigh", "ns", "ns-pallas"), default="scipy",
+                   help="the FID and O-FID stages' matrix square root (their CLIs' --sqrtm); scipy is the "
+                        "reference's; eigh takes the trace term in float64 from two symmetric eigendecompositions")
     p.add_argument("--only", type=str, default="", help="comma-separated stage names to run")
     p.add_argument("--skip", type=str, default="", help="comma-separated stage names to skip")
     p.add_argument("--resume", action="store_true",
@@ -343,6 +355,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     # batch_size is left out: the values do not depend on it
     effective = {"track": args.track, "precision": args.precision,
                  "roi_sampling": args.roi_sampling, "proposals": args.proposals}
+    if args.sqrtm != "scipy":  # recorded only when set, so that a default run's file stays the JAX runner's
+        effective["sqrtm"] = args.sqrtm
     config_path = os.path.join(out, "run_config.json")
     if args.resume and os.path.exists(config_path):
         with open(config_path) as f:

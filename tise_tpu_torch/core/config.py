@@ -102,3 +102,25 @@ def add_device_flag(parser) -> None:
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device of the run; 'cuda' (default) raises when no card is found, "
                              "'cpu' must be asked for")
+
+
+def add_distributed_flags(parser) -> None:
+    """Multi-process flags: when --coordinator is given, every participating
+    process runs the same CLI; work items shard across processes (each on
+    its own card) and per-item outputs allgather back into global order
+    before the metric math (tise_tpu_torch/parallel/multihost.py)."""
+    parser.add_argument("--coordinator", type=str, default=None,
+                        help="coordinator address host:port for multi-host runs (torch.distributed)")
+    parser.add_argument("--num-processes", type=int, default=None)
+    parser.add_argument("--process-id", type=int, default=None)
+
+
+def maybe_init_distributed(args) -> None:
+    """Join the cluster iff --coordinator was passed, before the first use
+    of the card; ``args.device`` becomes this process's device (the card
+    ``process_id % device_count``, or the CPU when ``--device cpu``)."""
+    if getattr(args, "coordinator", None):
+        from tise_tpu_torch.parallel import init_distributed
+
+        args.device = str(init_distributed(args.coordinator, args.num_processes, args.process_id,
+                                           getattr(args, "device", "cuda")))

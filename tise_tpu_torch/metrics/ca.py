@@ -29,11 +29,12 @@ import torch
 from tise_tpu_torch.backbones import counter as counter_lib
 from tise_tpu_torch.backbones.detection.coco_classes import COCO_CLASSES
 from tise_tpu_torch.core import io as result_io
-from tise_tpu_torch.core.config import (add_device_flag, add_precision_flag, configure_precision, resolve_device,
-                                        tf32_forward)
+from tise_tpu_torch.core.config import (add_device_flag, add_distributed_flags, add_precision_flag, configure_precision,
+                                        maybe_init_distributed, resolve_device, tf32_forward)
 from tise_tpu_torch.core.data import load_image
 from tise_tpu_torch.metrics import extractor as ext
 from tise_tpu_torch.ops.preprocess import normalize
+from tise_tpu_torch.parallel import multihost
 
 IMAGE_SIZE = 448  # CA.py:121
 
@@ -94,19 +95,24 @@ def compute_ca(
     the caption ids); a failed run re-raises and leaves the snapshot, and the
     same command resumes from it (bit-equal result).  (The JAX package also
     resets its TPU backend in process and retries; a CUDA context that
-    faulted cannot be reset in process, so the port re-raises.)"""
+    faulted cannot be reset in process, so the port re-raises.)  Across
+    processes the items shard and the RMSEs allgather back into global item
+    order (``parallel.multihost``); snapshots are one process's."""
+    if snapshot_path and multihost.is_distributed():
+        raise NotImplementedError("CA snapshots are one process's; a multi-process run shards the items instead")
     n = len(counting_data)
+    sel, gidx = multihost.shard_items(list(range(n)))
     fp = ""
     chunks: Dict[str, list] = {}
     cursor = 0
     snapshot_every = snapshot_every or max(batch_size * 8, 256)
     if snapshot_path:
-        fp = ext._snapshot_fingerprint([str(item["caption_id"]) for item in counting_data], IMAGE_SIZE, ("rmse",))
+        fp = ext._snapshot_fingerprint([str(counting_data[i]["caption_id"]) for i in sel], IMAGE_SIZE, ("rmse",))
         chunks, cursor = ext._load_snapshot(snapshot_path, fp)
     since = 0
     inflight = None  # (engine.dispatch's handle, the items of its batch)
 
-    def record(handle, chunk: range) -> None:
+    def record(handle, chunk: List[int]) -> None:
         nonlocal cursor, since
         preds = engine.pull(handle)
         chunks.setdefault("rmse", []).append(np.asarray(
@@ -118,8 +124,8 @@ def compute_ca(
         return load_image(os.path.join(image_dir, f"{counting_data[i]['caption_id']}.png"), (IMAGE_SIZE, IMAGE_SIZE))
 
     with ThreadPoolExecutor(max_workers=num_workers) as pool:
-        for start in range(cursor, n, batch_size):
-            chunk = range(start, min(start + batch_size, n))
+        for start in range(cursor, len(sel), batch_size):
+            chunk = sel[start:start + batch_size]
             handle = engine.dispatch(np.stack(list(pool.map(load, chunk))))
             if inflight is not None:
                 record(*inflight)
@@ -133,7 +139,8 @@ def compute_ca(
             record(*inflight)
     if snapshot_path and os.path.exists(snapshot_path):
         os.remove(snapshot_path)
-    rmse = np.concatenate(chunks["rmse"]) if chunks.get("rmse") else np.zeros(0)
+    local = np.concatenate(chunks["rmse"]) if chunks.get("rmse") else np.zeros(0)
+    rmse = multihost.allgather_rows(local, gidx, n)
     return float(np.mean(rmse))
 
 
@@ -150,8 +157,10 @@ def main(argv=None) -> None:
                         "(bit-equal result)")
     add_precision_flag(p)
     add_device_flag(p)
+    add_distributed_flags(p)
     args = p.parse_args(argv)
     configure_precision(args.precision)
+    maybe_init_distributed(args)
     device = resolve_device(args.device)
 
     engine = CountingEngine(counter_lib.load_counter_weights(args.weights), device, fast=args.precision == "fast")

@@ -6,9 +6,11 @@ crop_object.py:18-22) over a folder of generated images and writes every
 detected box as a ``<img>_<class>_<count>.png`` crop (:25-46; ``count`` is a
 running index over the whole folder).  The crops feed O-IS and O-FID.
 
-Left out against the JAX CLI: the TPU backend reset and the multi-host
-striding of files and of the index; with one process the index starts at 0
-and steps by 1.
+Across processes (``parallel.multihost``) the files shard, and each
+process's index starts at its process index and steps by the process count,
+so names stay unique in the shared folder and equal to the JAX CLI's; with
+one process the index starts at 0 and steps by 1.  Left out against the JAX
+CLI: the TPU backend reset.
 """
 
 from __future__ import annotations
@@ -20,11 +22,14 @@ import os
 import time
 from typing import Sequence
 
+import numpy as np
 from PIL import Image
 
 from tise_tpu_torch.backbones.detection import predictor
 from tise_tpu_torch.backbones.detection.coco_classes import COCO_CLASSES
-from tise_tpu_torch.core.config import add_device_flag, add_precision_flag, configure_precision, resolve_device
+from tise_tpu_torch.core.config import (add_device_flag, add_distributed_flags, add_precision_flag, configure_precision,
+                                        maybe_init_distributed, resolve_device)
+from tise_tpu_torch.parallel import multihost
 
 
 def crop_folder(
@@ -41,8 +46,8 @@ def crop_folder(
     (PIL cannot save them).
 
     Files run in slabs of ``slab``.  After each slab its crops are on disk
-    and a sentinel (``.crop_progress_0.json`` in ``dest_dir``, the JAX
-    package's name and format) records the cursor and the running index, so
+    and a sentinel (``.crop_progress_<process>.json`` in ``dest_dir``, the
+    JAX package's name and format) records the cursor and the running index, so
     a killed run resumes at the slab it was in and writes the same names
     (the index restarts at the slab's start: a torn slab is overwritten, not
     duplicated).  The sentinel goes when the folder is done.
@@ -50,12 +55,16 @@ def crop_folder(
     A run that does not resume first removes the crops an earlier run of
     these sources left in ``dest_dir`` (``<stem>_<class>_<n>.png``): other
     detections write other names, and O-IS and O-FID read the whole
-    folder.  The JAX CLI keeps them."""
-    files = [os.path.join(src_dir, f) for f in sorted(os.listdir(src_dir))]
+    folder.  The JAX CLI keeps them.  Across processes each process runs
+    its shard of the files, resumes from its own sentinel and removes the
+    earlier crops of its own sources only; the total is allgathered, and
+    every process waits for the others before it returns."""
+    files, _ = multihost.shard_items([os.path.join(src_dir, f) for f in sorted(os.listdir(src_dir))])
     os.makedirs(dest_dir, exist_ok=True)
-    count = written = start = 0
-    fingerprint = hashlib.sha256(("\0".join(files) + "|1").encode()).hexdigest()
-    prog_path = os.path.join(dest_dir, ".crop_progress_0.json")
+    pid, step = multihost.process_index(), multihost.process_count()
+    count, written, start = pid, 0, 0
+    fingerprint = hashlib.sha256(("\0".join(files) + f"|{step}").encode()).hexdigest()
+    prog_path = os.path.join(dest_dir, f".crop_progress_{pid}.json")
     resuming = False
     if progress and os.path.exists(prog_path):
         try:
@@ -86,7 +95,7 @@ def crop_folder(
                         continue
                     im.crop((x1, y1, x2, y2)).save(
                         os.path.join(dest_dir, f"{stem}_{class_names[int(cls_id)]}_{count}.png"))
-                    count += 1
+                    count += step
                     written += 1
         start += len(slab_files)
         if progress:
@@ -96,7 +105,9 @@ def crop_folder(
             os.replace(tmp, prog_path)
     if progress and os.path.exists(prog_path):
         os.remove(prog_path)
-    return written
+    total = multihost.allgather_rows(np.asarray([written]), np.asarray([pid]), step)
+    multihost.barrier("crop_objects_done")
+    return int(total.sum())
 
 
 def remove_earlier_crops(dest_dir: str, files: Sequence[str], class_names: Sequence[str]) -> None:
@@ -127,6 +138,7 @@ def add_detector_flags(p: argparse.ArgumentParser) -> None:
                         "256 is the opt-in sweep setting")
     add_precision_flag(p)
     add_device_flag(p)
+    add_distributed_flags(p)
 
 
 def build_detector(args) -> predictor.Detector:
@@ -150,6 +162,7 @@ def main(argv=None) -> None:
     p.add_argument("--saved_cropped_object_dir", default="", type=str)
     add_detector_flags(p)
     args = p.parse_args(argv)
+    maybe_init_distributed(args)
     detector = build_detector(args)
     t0 = time.perf_counter()
     n = crop_folder(detector, args.source_image_dir, args.saved_cropped_object_dir)

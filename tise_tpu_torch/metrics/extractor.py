@@ -20,6 +20,7 @@ import torch
 
 from tise_tpu_torch.core.data import Batch, ImageFolderLoader
 from tise_tpu_torch.ops.preprocess import normalize, resize_and_normalize
+from tise_tpu_torch.parallel import multihost
 
 
 class BatchedExtractor:
@@ -60,7 +61,34 @@ class BatchedExtractor:
             return self.apply_fn(normalize(x, self.recipe))
 
     def run(self, loader: Iterable[Batch], keys: Optional[Sequence[str]] = None) -> Dict[str, np.ndarray]:
-        """Drain a loader; returns host arrays with padding rows removed."""
+        """Drain a loader; returns host arrays with padding rows removed.
+
+        Across processes (``parallel.multihost``) the loader's file list is
+        sharded, each process extracts its shard on its own device, and the
+        rows are allgathered back into global file order: the result is the
+        same on every process and bit-equal to one process's."""
+        if multihost.is_distributed() and hasattr(loader, "files"):
+            files = list(loader.files)
+            if loader.drop_last:
+                # legacy drop_last acts on the GLOBAL list (fid_score.py:216)
+                files = files[: len(files) // loader.batch_size * loader.batch_size]
+            local_files, idx = multihost.shard_items(files)
+            sub = type(loader)(local_files, loader.batch_size, loader.image_size, resample=loader.resample,
+                               center_crop=loader.center_crop, num_workers=loader.num_workers,
+                               prefetch=loader.prefetch)
+            local = self._run_local(sub, keys)
+            if not local:
+                # an empty shard (fewer files than processes) still enters the
+                # SAME allgathers as every other process, or the cluster
+                # deadlocks: a dummy forward gives the keys and row shapes
+                size = loader.image_size
+                dummy = self(np.zeros((1, size, size, 3), np.uint8))
+                local = {k: np.zeros((0,) + tuple(v.shape[1:]), v.cpu().numpy().dtype)
+                         for k, v in dummy.items() if keys is None or k in keys}
+            return {k: multihost.allgather_rows(v, idx, len(files)) for k, v in local.items()}
+        return self._run_local(loader, keys)
+
+    def _run_local(self, loader: Iterable[Batch], keys: Optional[Sequence[str]] = None) -> Dict[str, np.ndarray]:
         pending: List[Tuple[Dict[str, torch.Tensor], np.ndarray]] = []
         chunks: Dict[str, List[np.ndarray]] = {}
 
@@ -131,6 +159,9 @@ def run_resumable(
     in-process and retries; a CUDA context that faulted cannot be reset in
     process, so the port re-raises.)
     """
+    if multihost.is_distributed():
+        raise NotImplementedError("run_resumable is one process's; a multi-process run shards the file list "
+                                  "across processes instead (BatchedExtractor.run)")
     files = list(files)
     fingerprint = _snapshot_fingerprint(files, image_size, keys)
     chunks, cursor = _load_snapshot(snapshot_path, fingerprint)

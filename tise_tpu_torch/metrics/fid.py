@@ -30,7 +30,8 @@ from tise_tpu_torch.backbones.inception_fast import FastInception
 from tise_tpu_torch.backbones.inception_v3 import InceptionV3
 from tise_tpu_torch.core import io as result_io
 from tise_tpu_torch.core import weights as weights_io
-from tise_tpu_torch.core.config import add_device_flag, add_precision_flag, configure_precision, resolve_device
+from tise_tpu_torch.core.config import (add_device_flag, add_distributed_flags, add_precision_flag, configure_precision,
+                                        maybe_init_distributed, resolve_device)
 from tise_tpu_torch.core.data import ImageFolderLoader
 from tise_tpu_torch.metrics.extractor import BatchedExtractor, run_resumable
 from tise_tpu_torch.ops import sqrtm, stats
@@ -189,6 +190,7 @@ def add_fid_flags(p: argparse.ArgumentParser, weights_help: str) -> None:
                         "run resumes from them (bit-equal result; see extractor.run_resumable)")
     add_precision_flag(p)
     add_device_flag(p)
+    add_distributed_flags(p)
 
 
 def parse_fid_args(p: argparse.ArgumentParser, argv) -> argparse.Namespace:
@@ -196,6 +198,7 @@ def parse_fid_args(p: argparse.ArgumentParser, argv) -> argparse.Namespace:
     if args.gpu:
         os.environ["CUDA_VISIBLE_DEVICES"] = args.gpu  # before the first CUDA call
     configure_precision(args.precision)
+    maybe_init_distributed(args)
     if not args.save_stats and not args.path2:
         p.error("--path2 is required (or pass --save_stats to cache statistics of --path1)")
     return args

@@ -33,8 +33,8 @@ import numpy as np
 from tise_tpu_torch.backbones import inception_slim
 from tise_tpu_torch.core import io as result_io
 from tise_tpu_torch.core.config import (IS_STAR_TEMPERATURE_COCO, IS_STAR_TEMPERATURE_CUB, NUM_SPLITS,
-                                        add_device_flag, add_precision_flag, configure_precision,
-                                        resolve_device)
+                                        add_device_flag, add_distributed_flags, add_precision_flag,
+                                        configure_precision, maybe_init_distributed, resolve_device)
 from tise_tpu_torch.core.data import ImageFolderLoader
 from tise_tpu_torch.metrics.extractor import BatchedExtractor, run_resumable
 from tise_tpu_torch.ops import kl
@@ -104,10 +104,12 @@ def main(argv=None) -> None:
                         "(bit-equal result; extractor.run_resumable)")
     add_precision_flag(p)
     add_device_flag(p)
+    add_distributed_flags(p)
     args = p.parse_args(argv)
     if args.gpu:
         os.environ["CUDA_VISIBLE_DEVICES"] = args.gpu  # before the first CUDA call
     configure_precision(args.precision)
+    maybe_init_distributed(args)
     device = resolve_device(args.device)
 
     def build() -> BatchedExtractor:

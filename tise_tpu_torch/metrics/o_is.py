@@ -21,8 +21,9 @@ import torch
 from tise_tpu_torch.backbones.inception_v3 import InceptionV3
 from tise_tpu_torch.core import io as result_io
 from tise_tpu_torch.core import weights as weights_io
-from tise_tpu_torch.core.config import (NUM_SPLITS, O_IS_TEMPERATURE, add_device_flag, add_precision_flag,
-                                        configure_precision, resolve_device, tf32_forward)
+from tise_tpu_torch.core.config import (NUM_SPLITS, O_IS_TEMPERATURE, add_device_flag, add_distributed_flags,
+                                        add_precision_flag, configure_precision, maybe_init_distributed,
+                                        resolve_device, tf32_forward)
 from tise_tpu_torch.core.data import ImageFolderLoader
 from tise_tpu_torch.metrics.extractor import BatchedExtractor, run_resumable
 from tise_tpu_torch.metrics.is_star import IMAGE_SIZE
@@ -80,10 +81,12 @@ def main(argv=None) -> None:
                         "(bit-equal result; extractor.run_resumable)")
     add_precision_flag(p)
     add_device_flag(p)
+    add_distributed_flags(p)
     args = p.parse_args(argv)
     if args.gpu_id:
         os.environ["CUDA_VISIBLE_DEVICES"] = args.gpu_id  # before the first CUDA call
     configure_precision(args.precision)
+    maybe_init_distributed(args)
     device = resolve_device(args.device)
 
     state_dict = weights_io.load_inception_state_dict(args.weights)

@@ -24,11 +24,13 @@ import numpy as np
 from tise_tpu_torch.backbones import clip_vit
 from tise_tpu_torch.backbones.clip_tokenizer import SimpleTokenizer
 from tise_tpu_torch.core import io as result_io
-from tise_tpu_torch.core.config import (PA_SUCCESS_THRESHOLD, add_device_flag, add_precision_flag,
-                                        configure_precision, resolve_device)
+from tise_tpu_torch.core.config import (PA_SUCCESS_THRESHOLD, add_device_flag, add_distributed_flags,
+                                        add_precision_flag, configure_precision, maybe_init_distributed,
+                                        resolve_device)
 from tise_tpu_torch.core.data import center_crop_resize
 from tise_tpu_torch.metrics import extractor as ext
 from tise_tpu_torch.metrics.clip_scorer import ClipPairScorer
+from tise_tpu_torch.parallel import multihost
 
 IMAGE_SIZE = 224
 
@@ -50,18 +52,22 @@ def score_phrase(
     threshold: float = PA_SUCCESS_THRESHOLD,
     num_workers: int = 8,
 ) -> Tuple[float, int]:
-    """-> (success rate, total) for one positional-word folder."""
+    """-> (success rate, total) for one positional-word folder.  Across
+    processes the phrase's items shard and the success bits allgather back
+    (``parallel.multihost``)."""
     n = len(items)
-    success = np.zeros(n, dtype=bool)
+    sel, gidx = multihost.shard_items(list(items))
+    local = np.zeros(len(sel), dtype=bool)
     with ThreadPoolExecutor(max_workers=num_workers) as pool:
-        for start in range(0, n, batch_size):
-            chunk = items[start:start + batch_size]
+        for start in range(0, len(sel), batch_size):
+            chunk = sel[start:start + batch_size]
             imgs = list(pool.map(
                 lambda it: center_crop_resize(os.path.join(phrase_dir, f"{it['caption_id']}.png"), IMAGE_SIZE),
                 chunk))
             toks = [tokenizer.tokenize([it["caption"], it["false_caption"]]) for it in chunk]
             logits = scorer.logits(np.stack(imgs), np.stack(toks))
-            success[start:start + len(chunk)] = _softmax2_first(logits) > threshold
+            local[start:start + len(chunk)] = _softmax2_first(logits) > threshold
+    success = multihost.allgather_rows(local, gidx, n)
     return float(np.sum(success)) / n if n else 0.0, n
 
 
@@ -114,7 +120,10 @@ def compute_pa(
     failed run re-raises and leaves the snapshot, and the same command skips
     the completed phrases (bit-equal result).  (The JAX package also resets
     its TPU backend in process and re-runs the phrase; a CUDA context that
-    faulted cannot be reset in process, so the port re-raises.)"""
+    faulted cannot be reset in process, so the port re-raises.)  Snapshots
+    are one process's."""
+    if snapshot_path and multihost.is_distributed():
+        raise NotImplementedError("PA snapshots are one process's; a multi-process run shards the items instead")
     phrase_res: Dict[str, Dict] = {}
     fp = ""
     if snapshot_path:
@@ -151,8 +160,10 @@ def main(argv=None) -> None:
                         "snapshot at this path (bit-equal result)")
     add_precision_flag(p)
     add_device_flag(p)
+    add_distributed_flags(p)
     args = p.parse_args(argv)
     configure_precision(args.precision)
+    maybe_init_distributed(args)
     device = resolve_device(args.device)
 
     data = result_io.load_pickle(args.pa_input_file)

@@ -27,11 +27,12 @@ import numpy as np
 from tise_tpu_torch.backbones import clip_vit
 from tise_tpu_torch.backbones.clip_tokenizer import SimpleTokenizer
 from tise_tpu_torch.core import io as result_io
-from tise_tpu_torch.core.config import (NUM_SPLITS, add_device_flag, add_precision_flag, configure_precision,
-                                        resolve_device)
+from tise_tpu_torch.core.config import (NUM_SPLITS, add_device_flag, add_distributed_flags, add_precision_flag,
+                                        configure_precision, maybe_init_distributed, resolve_device)
 from tise_tpu_torch.core.data import center_crop_resize
 from tise_tpu_torch.metrics import extractor as ext
 from tise_tpu_torch.metrics.clip_scorer import ClipPairScorer
+from tise_tpu_torch.parallel import multihost
 
 IMAGE_SIZE = 224
 
@@ -80,8 +81,18 @@ def score_items(
     and the same command resumes from it (bit-equal result).  (The JAX
     package also resets its TPU backend in process and retries; a CUDA
     context that faulted cannot be reset in process, so the port re-raises.)
+
+    Across processes (``parallel.multihost``) the items shard and the
+    successes allgather back into global item order.  Every process encodes
+    the bank of EVERY item's captions, so each holds the whole bank, the
+    same bits as one process's (the JAX CLI builds each process's bank from
+    its shard, and its bank comes back sharded over a mesh of more than one
+    device).  Snapshots are one process's.
     """
+    if snapshot_path and multihost.is_distributed():
+        raise NotImplementedError("RP snapshots are one process's; a multi-process run shards the items instead")
     n = len(items)
+    sel, gidx = multihost.shard_items(list(range(n)))
     bank = rows = None
     if dedup_text:
         cap_id: Dict[str, int] = {}
@@ -99,7 +110,7 @@ def score_items(
     cursor = 0
     snapshot_every = snapshot_every or max(batch_size * 16, 1024)
     if snapshot_path:
-        fp = ext._snapshot_fingerprint(list(image_paths), IMAGE_SIZE, ("success",))
+        fp = ext._snapshot_fingerprint([image_paths[i] for i in sel], IMAGE_SIZE, ("success",))
         chunks, cursor = ext._load_snapshot(snapshot_path, fp)
     since = 0
     inflight = None  # (scorer.dispatch_from_bank's handle, item count)
@@ -111,11 +122,11 @@ def score_items(
         since += n_items
 
     with ThreadPoolExecutor(max_workers=num_workers) as pool:
-        for start in range(cursor, n, batch_size):
-            chunk = range(start, min(start + batch_size, n))
+        for start in range(cursor, len(sel), batch_size):
+            chunk = sel[start:start + batch_size]
             imgs = np.stack(list(pool.map(lambda i: center_crop_resize(image_paths[i], IMAGE_SIZE), chunk)))
             if dedup_text:
-                handle = scorer.dispatch_from_bank(imgs, bank, rows[chunk.start:chunk.stop])
+                handle = scorer.dispatch_from_bank(imgs, bank, rows[chunk])
                 if inflight is not None:
                     record(scorer.pull_logits(inflight[0]), inflight[1])
                 inflight = (handle, len(chunk))
@@ -133,7 +144,8 @@ def score_items(
             record(scorer.pull_logits(inflight[0]), inflight[1])
     if snapshot_path and os.path.exists(snapshot_path):
         os.remove(snapshot_path)
-    return np.concatenate(chunks["success"]).astype(bool) if chunks.get("success") else np.zeros(0, dtype=bool)
+    local = np.concatenate(chunks["success"]).astype(bool) if chunks.get("success") else np.zeros(0, dtype=bool)
+    return multihost.allgather_rows(local, gidx, n)
 
 
 def compute_rp(
@@ -177,8 +189,10 @@ def main(argv=None) -> None:
                         "cursor snapshot at this path (bit-equal result)")
     add_precision_flag(p)
     add_device_flag(p)
+    add_distributed_flags(p)
     args = p.parse_args(argv)
     configure_precision(args.precision)
+    maybe_init_distributed(args)
     device = resolve_device(args.device)
 
     rp_input = result_io.load_pickle(args.rp_input_file)

@@ -33,11 +33,12 @@ import torch
 
 from tise_tpu_torch.backbones import damsm
 from tise_tpu_torch.core import io as result_io
-from tise_tpu_torch.core.config import (NUM_SPLITS, add_device_flag, add_precision_flag, configure_precision,
-                                        resolve_device, tf32_forward)
+from tise_tpu_torch.core.config import (NUM_SPLITS, add_device_flag, add_distributed_flags, add_precision_flag,
+                                        configure_precision, maybe_init_distributed, resolve_device, tf32_forward)
 from tise_tpu_torch.core.data import load_image
 from tise_tpu_torch.metrics import extractor as ext
 from tise_tpu_torch.ops.preprocess import normalize
+from tise_tpu_torch.parallel import multihost
 
 IMAGE_SIZE = 256
 MAX_LEN = 32  # tokens kept of a caption
@@ -172,15 +173,21 @@ def score_items(
     failed run re-raises and leaves the snapshot, and the same command
     resumes from it (bit-equal result).  (The JAX package also resets its TPU
     backend in process and retries; a CUDA context that faulted cannot be
-    reset in process, so the port re-raises.)
+    reset in process, so the port re-raises.)  Across processes the items
+    shard and the successes allgather back into global item order
+    (``parallel.multihost``); snapshots are one process's.
     """
+    if snapshot_path and multihost.is_distributed():
+        raise NotImplementedError("RP-CUB snapshots are one process's; a multi-process run shards the items "
+                                  "instead")
     n = len(rp_input)
+    sel, gidx = multihost.shard_items(list(range(n)))
     fp = ""
     chunks: Dict[str, list] = {}
     cursor = 0
     snapshot_every = snapshot_every or max(batch_size * 8, 256)
     if snapshot_path:
-        fp = ext._snapshot_fingerprint([str(item["caption_id"]) for item in rp_input], IMAGE_SIZE, ("rp_cub",))
+        fp = ext._snapshot_fingerprint([str(rp_input[i]["caption_id"]) for i in sel], IMAGE_SIZE, ("rp_cub",))
         chunks, cursor = ext._load_snapshot(snapshot_path, fp)
     token_ids: Dict[str, List[int]] = {}
 
@@ -202,8 +209,8 @@ def score_items(
         since += n_items
 
     with ThreadPoolExecutor(max_workers=8) as pool:
-        for start in range(cursor, n, batch_size):
-            chunk = range(start, min(start + batch_size, n))
+        for start in range(cursor, len(sel), batch_size):
+            chunk = sel[start:start + batch_size]
             imgs = np.stack(list(pool.map(load, chunk)))
             caps, lens = pack_caption_sets(
                 [[tokens(rp_input[i]["caption"])] + [tokens(c) for c in rp_input[i]["mismatched_captions"]]
@@ -221,7 +228,8 @@ def score_items(
             record(scorer.pull(inflight[0]), inflight[1])
     if snapshot_path and os.path.exists(snapshot_path):
         os.remove(snapshot_path)
-    return np.concatenate(chunks["success"]) if chunks.get("success") else np.zeros(0, np.float64)
+    local = np.concatenate(chunks["success"]) if chunks.get("success") else np.zeros(0, np.float64)
+    return multihost.allgather_rows(local, gidx, n)
 
 
 def compute_rp_cub(
@@ -259,8 +267,10 @@ def main(argv=None) -> None:
                         "cursor snapshot at this path (bit-equal result)")
     add_precision_flag(p)
     add_device_flag(p)
+    add_distributed_flags(p)
     args = p.parse_args(argv)
     configure_precision(args.precision)
+    maybe_init_distributed(args)
     device = resolve_device(args.device)
 
     ixtoword, wordtoix = load_vocab(args.captions_pickle)

@@ -13,8 +13,10 @@ arithmetic:
   * top/bot-40: labels sorted by image count, each half summed / (0.5 n)
     (:147-165)
 A label's id is the number after "label" in the folder name (util.py:16-22).
-Pickles of either package, or of the reference, are interchangeable.  The
-JAX CLI's multi-host sharding and TPU backend reset are left out.
+Pickles of either package, or of the reference, are interchangeable.
+Across processes (``parallel.multihost``) the label folders shard, a
+barrier waits for every pickle, and every process aggregates, but only
+process 0 writes the results.  The JAX CLI's TPU backend reset is left out.
 """
 
 from __future__ import annotations
@@ -27,7 +29,9 @@ from typing import Callable, Dict, List, Sequence, Tuple
 import numpy as np
 
 from tise_tpu_torch.core import io as result_io
+from tise_tpu_torch.core.config import maybe_init_distributed
 from tise_tpu_torch.metrics.crop_objects import add_detector_flags, build_detector, report
+from tise_tpu_torch.parallel import multihost
 
 #: detector output per image: ([class names], [class ids], [xyxy boxes])
 Detections = Tuple[List[str], List[int], List[np.ndarray]]
@@ -47,7 +51,9 @@ def label_from_filename(path: str) -> int:
 def run_detection(images_root: str, detected_dir: str, detector: DetectorFn, *, expect_folders: int = 80) -> int:
     """Stage 1: one detection sweep a label folder, each saved as its own
     pickle, so a killed run repeats at most one label (SOA.py:45-107).
-    Returns the number of images detected."""
+    Across processes the label folders shard; every process waits at the
+    end until all pickles are written.  Returns the number of images this
+    process detected."""
     dirs = [d for d in sorted(os.listdir(images_root)) if os.path.isdir(os.path.join(images_root, d))]
     if len(dirs) != expect_folders:
         print(
@@ -56,7 +62,7 @@ def run_detection(images_root: str, detected_dir: str, detector: DetectorFn, *, 
         )
     os.makedirs(detected_dir, exist_ok=True)
     images = 0
-    for d in dirs:
+    for d in multihost.shard_items(dirs)[0]:
         out_pkl = os.path.join(detected_dir, f"detected_{d}.pkl")
         if os.path.isfile(out_pkl):
             print(f"Detection already run for {d}; skipping.")
@@ -71,6 +77,7 @@ def run_detection(images_root: str, detected_dir: str, detector: DetectorFn, *, 
                 output[os.path.basename(path)] = [list(names), list(ids), list(boxes)]
         result_io.save_pickle(out_pkl + ".tmp", output)  # a killed write leaves no pickle to skip
         os.replace(out_pkl + ".tmp", out_pkl)
+    multihost.barrier("soa_detection_done")
     return images
 
 
@@ -100,11 +107,13 @@ def soa_scores(results: Dict[int, Dict[str, float]]) -> Tuple[float, float, floa
     return soa_c, soa_i, top / (0.5 * n), bot / (0.5 * n)
 
 
-def calc_soa(detected_dir: str, saved_file: str) -> Tuple[float, float, float, float]:
+def calc_soa(detected_dir: str, saved_file: str, *, write: bool = True) -> Tuple[float, float, float, float]:
     """Stage 2 (SOA.py:168-216): aggregate the detection pickles, in
     ``os.listdir`` order as the JAX package does (that order is the
     insertion order of ``result_file.pkl``'s dict), and write
-    ``result_file.pkl`` beside them and the result file."""
+    ``result_file.pkl`` beside them and the result file unless ``write`` is
+    False: across processes every process aggregates but only process 0
+    writes, or concurrent truncating writes could tear the pickle."""
     files = [
         os.path.join(detected_dir, f)
         for f in os.listdir(detected_dir)
@@ -120,9 +129,10 @@ def calc_soa(detected_dir: str, saved_file: str) -> Tuple[float, float, float, f
     print(f"Class average accuracy for all classes (SOA-C) is: {soa_c:6.4f}")
     print(f"Image weighted average accuracy (SOA-I) is: {soa_i:6.4f}")
     print(f"Top40 / Bot40: {top40:6.4f} / {bot40:6.4f}")
-    result_io.save_pickle(os.path.join(detected_dir, "result_file.pkl"), results)
-    if saved_file:
-        result_io.write_soa_result(saved_file, soa_c, soa_i, top40, bot40)
+    if write:
+        result_io.save_pickle(os.path.join(detected_dir, "result_file.pkl"), results)
+        if saved_file:
+            result_io.write_soa_result(saved_file, soa_c, soa_i, top40, bot40)
     return soa_c, soa_i, top40, bot40
 
 
@@ -134,13 +144,14 @@ def main(argv=None) -> None:
     p.add_argument("--skip_detection", action="store_true", help="aggregate cached pickles only")
     add_detector_flags(p)
     args = p.parse_args(argv)
+    maybe_init_distributed(args)
 
     if not args.skip_detection:
         detector = build_detector(args)
         t0 = time.perf_counter()
         images = run_detection(args.images, args.detected_results, detector)
         report("soa", detector, images, time.perf_counter() - t0)
-    calc_soa(args.detected_results, args.saved_file)
+    calc_soa(args.detected_results, args.saved_file, write=multihost.process_index() == 0)
 
 
 if __name__ == "__main__":

@@ -18,16 +18,24 @@ variance towards that same biased variance; ``nn.BatchNorm`` would move it
 towards the unbiased one (4/3 as large over the 4 rows of a batch of 4).
 So ``batch_norm`` builds a BatchNorm whose train mode keeps Flax's running
 statistics: Flax's ``momentum=0.9`` (weight of the old running value) is
-``momentum=0.1`` here (weight of the batch's).  Submodules keep the Flax
+``momentum=0.1`` here (weight of the batch's).  Its moments are those of
+the local batch, or, under ``synced_batch_norm``, of the global batch whose
+shards the processes of a group hold (``global_moments``: the JAX module's
+moments over a sharded batch).  Submodules keep the Flax
 names with ``Conv_i`` as ``conv{i}``, ``SpectralConv_i`` as ``conv{i}`` and
 ``SyncBatchNorm_0/bn`` as ``bn`` (``models/weights.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
+from typing import Tuple
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from tise_tpu_torch.parallel import gather_rows
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1  # torch's convention; Flax's momentum=0.9
@@ -38,20 +46,55 @@ def glu(x: torch.Tensor) -> torch.Tensor:
     return a * torch.sigmoid(b)
 
 
+def global_moments(x: torch.Tensor, dims, group) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(biased variance, mean) over ``dims`` of the global batch whose
+    shards the processes of ``group`` hold, each the same size, with the
+    gradient through both: each process's (mean, sum of squared deviations)
+    is gathered and merged as Chan et al.'s parallel variance does, so no
+    sum of squares cancels."""
+    n = x.numel() // x.shape[1]
+    mean = x.mean(dim=dims)
+    m2 = ((x - mean.view(_channel_shape(x))) ** 2).sum(dim=dims)
+    stats = gather_rows(torch.stack([mean, m2])[None], group)  # [processes, 2, C]
+    means, m2s = stats[:, 0], stats[:, 1]
+    g_mean = means.mean(dim=0)
+    var = (m2s.sum(dim=0) + n * ((means - g_mean) ** 2).sum(dim=0)) / (n * stats.shape[0])
+    return var, g_mean
+
+
+def _channel_shape(x: torch.Tensor) -> Tuple[int, ...]:
+    return (1, x.shape[1]) + (1,) * (x.dim() - 2)
+
+
 class _FlaxRunningStats:
     """Train mode as Flax's BatchNorm: normalise with the batch's mean and
-    biased variance, and move both running statistics towards those."""
+    biased variance, and move both running statistics towards those.  Under
+    :func:`synced_batch_norm` the batch is the global one whose shards the
+    processes of a group hold (the JAX ``SyncBatchNorm`` over a sharded
+    batch)."""
+
+    group = None  # a process group while synced
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         dims = [0] + list(range(2, x.dim()))
+        if self.group is None:
+            with torch.no_grad():
+                var, mean = torch.var_mean(x, dim=dims, correction=0)
+                self._move_running(mean, var)
+            return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        var, mean = global_moments(x, dims, self.group)
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=dims, correction=0)
-            self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(var, self.momentum)
-            self.num_batches_tracked += 1
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+            self._move_running(mean, var)
+        shape = _channel_shape(x)
+        scale = self.weight.view(shape) * torch.rsqrt(var.view(shape) + self.eps)
+        return (x - mean.view(shape)) * scale + self.bias.view(shape)
+
+    def _move_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        self.running_mean.lerp_(mean, self.momentum)
+        self.running_var.lerp_(var, self.momentum)
+        self.num_batches_tracked += 1
 
 
 class BatchNorm1d(_FlaxRunningStats, nn.BatchNorm1d):
@@ -67,6 +110,21 @@ def batch_norm(features: int, dims: int = 2) -> nn.Module:
     train mode keeps Flax's)."""
     cls = BatchNorm2d if dims == 2 else BatchNorm1d
     return cls(features, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+
+@contextlib.contextmanager
+def synced_batch_norm(module: nn.Module, group):
+    """Inside the block, every train-mode BatchNorm of ``module`` takes its
+    moments over the global batch of ``group``'s processes (``None``: this
+    process's batch)."""
+    norms = [m for m in module.modules() if isinstance(m, _FlaxRunningStats)]
+    for m in norms:
+        m.group = group
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.group = None
 
 
 def nearest_upsample(x: torch.Tensor, factor: int = 2) -> torch.Tensor:

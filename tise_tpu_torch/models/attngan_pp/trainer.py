@@ -28,8 +28,20 @@ Against the JAX step (``make_train_step``), which is one jitted program:
   * Adam is ``torch.optim.Adam``, whose eps is added outside the
     bias-corrected sqrt(v) as in ``optax.adam``.
 
-Left out: the JAX step's ``ablate`` profiling hook, ``make_sharded_train_step``
-(multi-host) and ``GanConfig.remat``.
+``make_sharded_train_step`` is the step of one process on its shard of a
+global batch (tise_tpu/models/attngan_pp/trainer.py:320-340): every
+process ends the step with the same state, equal to one process's step on
+the global batch up to f32 rounding.  Three places couple a batch's rows,
+and each is made global: G's train-mode BatchNorm takes the global batch's
+mean and biased variance (``layers.synced_batch_norm``); the DAMSM losses
+rank this process's images against the global batch's captions and take
+its own rows (``losses``), and the D's wrong pairs cross the processes'
+boundaries; each process's loss is its share of the global loss times the
+number of processes, and the gradients are averaged over the processes
+before each Adam update (``average_gradients``: one forward feeds several
+backward passes, so this is done by hand rather than by DDP).
+
+Left out: the JAX step's ``ablate`` profiling hook and ``GanConfig.remat``.
 """
 
 from __future__ import annotations
@@ -39,14 +51,16 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tise_tpu_torch.backbones import damsm
 from tise_tpu_torch.core.config import resolve_device
 from tise_tpu_torch.models import weights as m_weights
-from tise_tpu_torch.models.attngan_pp import losses
+from tise_tpu_torch.models.attngan_pp import layers, losses
 from tise_tpu_torch.models.attngan_pp.discriminator import SCALES, DNet
 from tise_tpu_torch.models.attngan_pp.generator import GanConfig, GNet
 from tise_tpu_torch.ops.preprocess import normalize
+from tise_tpu_torch.parallel import gather_rows, group_size
 
 
 @dataclass(frozen=True)
@@ -215,27 +229,63 @@ def upload(a, device: torch.device, dtype: Optional[torch.dtype] = None) -> torc
     return t.to(device)
 
 
-def make_train_step(cfg: TrainConfig, models: Models):
+def average_gradients(module: torch.nn.Module, group) -> None:
+    """Each gradient of ``module`` <- its mean over the processes of
+    ``group`` (one all-reduce of them all); nothing for ``None``."""
+    if group is None:
+        return
+    grads = [p.grad for p in module.parameters() if p.grad is not None]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=group)
+    flat /= dist.get_world_size(group)
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
+
+
+def local_rows(batch_size: int, group) -> slice:
+    """The global rows of this process's shard of a batch: contiguous
+    blocks in rank order, as the JAX step shards the batch axis."""
+    return losses.own_rows(batch_size // group_size(group), group)
+
+
+def shard_batch(batch: Batch, group) -> Batch:
+    """This process's rows of a global batch (host arrays)."""
+    rows = local_rows(len(batch.cap_lens), group)
+    return Batch(tuple(im[rows] for im in batch.images), batch.captions[rows], batch.cap_lens[rows],
+                 batch.class_ids[rows])
+
+
+def make_train_step(cfg: TrainConfig, models: Models, group=None):
     """-> ``train_step(state, batch, z, eps)``: one step in place, returning
     the metrics (g_loss, d_loss, w_loss, s_loss, kl_loss, d{scale}_loss) as
-    0-d tensors on the device."""
+    0-d tensors on the device.  ``group``: see
+    :func:`make_sharded_train_step`; ``None`` is one process."""
     scales = SCALES[:cfg.gan.branch_num]
     decay = cfg.ema_decay
+    world = group_size(group)
 
     def train_step(state: TrainState, batch: Batch, z: torch.Tensor, eps: torch.Tensor) -> Dict[str, torch.Tensor]:
         device = z.device
         gnet, dnets = state.gnet, state.dnets
-        captions = upload(batch.captions, device, torch.int64)
-        cap_lens = upload(batch.cap_lens, device, torch.int64)
-        class_ids = upload(batch.class_ids, device, torch.int64)
+        # the text side of the GLOBAL batch: the DAMSM losses and the D's
+        # wrong pairs read other processes' captions
+        captions, cap_lens, class_ids = (gather_rows(upload(a, device, torch.int64), group)
+                                         for a in (batch.captions, batch.cap_lens, batch.class_ids))
         reals = [normalize(upload(im, device), "half").to(z.dtype).permute(0, 3, 1, 2) for im in batch.images]
         with torch.no_grad():  # the text features are detached (trainer.py:178-179)
-            words_embs, sent_emb = models.text_encoder(captions, np.asarray(batch.cap_lens))
+            words_embs, sent_emb = models.text_encoder(
+                captions, np.asarray(batch.cap_lens) if group is None else cap_lens.cpu().numpy())
         mask = captions == 0  # padding is token 0 (trainer.py:316)
-        b = captions.shape[0]
+        b, rows = z.shape[0], local_rows(captions.shape[0], group)
+        total = captions.shape[0]
+        sent_local = sent_emb[rows]
+        # wrong pairs: real row i against sentence i + 1 for the B - 1 rows i < B - 1
+        n_wrong = min(b, total - 1 - rows.start)
+        wrong_sent = sent_emb[rows.start + 1:rows.start + 1 + n_wrong]
 
         # ---- G forward, once: its graph backs the G update ----
-        fakes, _, mu, logvar = gnet(z, sent_emb, words_embs, mask, eps)
+        with layers.synced_batch_norm(gnet, group):
+            fakes, _, mu, logvar = gnet(z, sent_local, words_embs[rows], mask[rows], eps)
 
         # ---- D updates on the detached fakes (losses.py:138) ----
         metrics: Dict[str, torch.Tensor] = {}
@@ -245,11 +295,13 @@ def make_train_step(cfg: TrainConfig, models: Models):
             real_h = d.features(reals[i], update_stats=True)
             fake_h = d.features(fakes[i].detach())
             parts = losses.discriminator_loss(
-                d.cond_logits(real_h, sent_emb), d.uncond_logits(real_h),
-                d.cond_logits(fake_h, sent_emb), d.uncond_logits(fake_h),
-                d.cond_logits(real_h[:b - 1], sent_emb[1:]))  # wrong pairs (losses.py:146-148)
+                d.cond_logits(real_h, sent_local), d.uncond_logits(real_h),
+                d.cond_logits(fake_h, sent_local), d.uncond_logits(fake_h),
+                d.cond_logits(real_h[:n_wrong], wrong_sent),  # wrong pairs (losses.py:146-148)
+                wrong_weight=n_wrong * world / (total - 1))
             state.d_opts[s].zero_grad(set_to_none=True)
             parts.total.backward()
+            average_gradients(d, group)
             state.d_opts[s].step()
             d.commit_spectral()
             metrics[f"d{s}_loss"] = parts.total.detach()
@@ -262,13 +314,13 @@ def make_train_step(cfg: TrainConfig, models: Models):
             g_loss = torch.zeros((), device=device)
             for i, s in enumerate(scales):
                 h = dnets[s].features(fakes[i])
-                g_loss = g_loss + losses.generator_adv_loss(dnets[s].cond_logits(h, sent_emb),
+                g_loss = g_loss + losses.generator_adv_loss(dnets[s].cond_logits(h, sent_local),
                                                             dnets[s].uncond_logits(h))
             # DAMSM on the finest scale through the frozen encoder; the loss in
             # G's dtype (f32 under a bf16 encoder too)
             region, cnn_code = models.image_encoder.encode(fakes[-1].permute(0, 2, 3, 1))
             w_loss, s_loss = losses.generator_damsm_loss(region.to(z.dtype), cnn_code.to(z.dtype), words_embs,
-                                                         sent_emb, cap_lens, class_ids, cfg.damsm)
+                                                         sent_emb, cap_lens, class_ids, cfg.damsm, group)
             kl = losses.kl_loss(mu, logvar)
             g_loss = g_loss + w_loss + s_loss + kl
             state.g_opt.zero_grad(set_to_none=True)
@@ -276,14 +328,30 @@ def make_train_step(cfg: TrainConfig, models: Models):
         finally:
             for d in dnets.values():
                 d.requires_grad_(True)
+        average_gradients(gnet, group)
         state.g_opt.step()
 
         update_ema(gnet, state.g_ema, decay)
         state.step += 1
-        return {"g_loss": g_loss.detach(), "d_loss": d_total, "w_loss": w_loss.detach(), "s_loss": s_loss.detach(),
-                "kl_loss": kl.detach(), **metrics}
+        metrics = {"g_loss": g_loss.detach(), "d_loss": d_total, "w_loss": w_loss.detach(),
+                   "s_loss": s_loss.detach(), "kl_loss": kl.detach(), **metrics}
+        if group is not None:  # each process's losses are its share times the processes: their mean is global
+            values = torch.stack(list(metrics.values()))
+            dist.all_reduce(values, group=group)
+            metrics = dict(zip(metrics, values / world))
+        return metrics
 
     return train_step
+
+
+def make_sharded_train_step(cfg: TrainConfig, models: Models, group):
+    """-> ``train_step(state, batch, z, eps)`` of one process of ``group``
+    (``parallel.step_group``) on its shard of the global batch
+    (``shard_batch``: contiguous rows in rank order) and its rows of the
+    global z and eps draws.  Every process starts from the same state and
+    ends with the same state, the one-process step's on the global batch
+    up to f32 rounding; the metrics are the global batch's."""
+    return make_train_step(cfg, models, group)
 
 
 def synthetic_batch(cfg: TrainConfig, rng: np.random.RandomState, batch_size: int) -> Batch:

@@ -13,6 +13,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tise_tpu_torch.core.config import resolve_device
 
@@ -58,6 +59,28 @@ def update_moments(state: MomentState, acts: torch.Tensor, mask: Optional[torch.
     total, total_c = _kahan_add(state.total, state.total_c, batch_sum)
     outer, outer_c = _kahan_add(state.outer, state.outer_c, batch_outer)
     return MomentState(count, total, outer, total_c, outer_c)
+
+
+def merge_moments(a: MomentState, b: MomentState) -> MomentState:
+    return MomentState(
+        a.count + b.count,
+        a.total + b.total,
+        a.outer + b.outer,
+        torch.zeros_like(a.total_c),
+        torch.zeros_like(a.outer_c),
+    )
+
+
+def psum_moments(state: MomentState, group=None) -> MomentState:
+    """The accumulators summed over the processes of ``group`` (the FID
+    analogue of the reference's SyncBN reduction, sync_batchnorm/comm.py);
+    ``None`` is the default group.  The JAX function sums over a mesh axis."""
+    summed = []
+    for t in (state.count, state.total, state.outer):
+        t = t.clone()
+        dist.all_reduce(t, group=group)
+        summed.append(t)
+    return MomentState(*summed, torch.zeros_like(state.total_c), torch.zeros_like(state.outer_c))
 
 
 def finalize_moments_f32(state: MomentState) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -77,14 +77,23 @@ class _Counter:
 
 
 #: profiled runs device_us takes before it gives up: on an H100 torch.profiler has been seen to
-#: come back with no kernel at all for a call whose kernels ran
-PROFILE_TRIES = 3
+#: come back with no kernel at all for a call whose kernels ran, or with only some of its launches
+PROFILE_TRIES = 5
+
+
+def whole(rows, calls: int) -> bool:
+    """Whether the profiler's kernel rows of ``calls`` calls of one function
+    hold some device time and every launch: each kernel a call launches
+    shows up a multiple of ``calls`` times (a run that dropped some of the
+    records is not read)."""
+    return sum(getattr(e, "device_time_total", 0) for e in rows) > 0 and all(e.count % calls == 0 for e in rows)
 
 
 def device_us(fn, calls: int = 20) -> Optional[float]:
     """Device time of one call from torch.profiler (the sum over the kernels
     it launches), in µs, or None where the profiler shows no device time in
-    any of PROFILE_TRIES profiled runs."""
+    any of PROFILE_TRIES profiled runs, or only some of the launches
+    (``whole``)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -94,10 +103,10 @@ def device_us(fn, calls: int = 20) -> Optional[float]:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        total = sum(getattr(e, "device_time_total", 0) for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA)  # kernel rows only: an op's row repeats its kernels' time
-        if total > 0:
-            return total / calls
+        # kernel rows only: an op's row repeats its kernels' time
+        rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if whole(rows, calls):
+            return sum(getattr(e, "device_time_total", 0) for e in rows) / calls
     return None
 
 
