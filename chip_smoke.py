@@ -118,6 +118,17 @@ of CLIP ViT-B/32 at 224 x 224:
     each rank's seconds by stage, the step's time by events and peak
     memory.
 
+Early in the run, before the paths above, where torch.profiler has always
+recorded the card: ``core.profiling.trace`` around the f32 FID CLI on 2 x 1,024
+seeded PNGs (the Chrome trace must hold every K1 and K2 launch; the
+device's idle share of the traced span is printed), and the AttnGAN++ train
+step at the published COCO width from the seeded state three ways: f32,
+f32 with ``GanConfig(remat=True)`` (the same losses and BatchNorm buffers,
+less peak memory) and bf16 (``build_models(..., dtype=torch.bfloat16)``:
+losses near f32's, K2 and its backward on bf16 in the DAMSM trunk), each by
+events with its peak memory, the bf16 step on the device with its idle
+share.  gen_bench's chain runs in bf16 beside f32 in the generation phase.
+
 Launch counters, set to 0 before each path and read after it, show that each
 path ran its kernels.  K1 is held to its plain version bit for bit in every
 recipe, f32 and bf16, at the four main-path shapes (299, 64, CLIP's 224 and
@@ -147,6 +158,7 @@ under build/chip_smoke/ and are removed at the end.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import io
 import json
@@ -2899,6 +2911,22 @@ def gen_bench_timings() -> None:
         f"({GEN_BENCH_BATCH / ms * 1e3:.1f} images/s), on the device {dev}; {flops / 1e9:.2f} GFLOP an image "
         f"(convolutions and dense layers), f32 bound {least:.2f} ms ({least / ms:.1%} of the events' time); "
         f"peak memory {peak:.2f} GiB")
+    bench16 = gen_bench.build("cuda", batch=GEN_BENCH_BATCH, chain=2, dtype=torch.bfloat16)
+    with torch.no_grad():
+        require(bool(torch.isfinite(bench16.chain_fn(0))), "gen_bench's bf16 chain is finite")
+        torch.cuda.reset_peak_memory_stats()
+        ms16 = median_ms(lambda: bench16.step_fn(1), reps=5, inner=2, warmup=1)
+        peak16 = torch.cuda.max_memory_allocated() / 2 ** 30
+        img32, img16 = bench.step_fn(1), bench16.step_fn(1)
+    require(img16.dtype == torch.bfloat16 and img16.shape == img32.shape, f"bf16 images {img16.dtype} {img16.shape}")
+    diff = (img16.float() - img32).flatten()
+    rel = float(diff.norm() / img32.norm())
+    least16 = flops * GEN_BENCH_BATCH / PEAK_BF16 * 1e3
+    log(f"[time gen_bench bf16] the same chain with G in bf16 (build(dtype=torch.bfloat16)): {ms16:.3f} ms by events "
+        f"({GEN_BENCH_BATCH / ms16 * 1e3:.1f} images/s, {ms / ms16:.2f}x f32), bf16 bound {least16:.3f} ms "
+        f"({least16 / ms16:.1%} of the events' time); peak memory {peak16:.2f} GiB; the finest images against f32: "
+        f"{rel:.3e} (L2, relative), largest difference {float(diff.abs().max()):.4f} of [-1, 1]")
+    require(np.isfinite(rel) and rel < 0.25, f"the bf16 images lie {rel:.3e} (L2) from f32's")
 
 
 def path_calibration(g: dict) -> None:
@@ -3300,11 +3328,13 @@ def train_device_times(gen: torch.Generator, floor_us: float, t: dict) -> None:
     step_device_time("time train", t["step"], t["events_ms"], t["flops"])
 
 
-def step_device_time(tag: str, step, events_ms: float, flops: float) -> None:
+def step_device_time(tag: str, step, events_ms: float, flops: float, peak_ops: float = PEAK_F32,
+                     peak_name: str = "f32"):
     """A whole train step on the device (torch.profiler over two steps after
-    a warm-up): its kernels' time beside the f32 bound of its ``flops`` and
-    its time by events, the device's idle share of the profiled wall time,
-    and the largest kernels."""
+    a warm-up): its kernels' time beside the bound of its ``flops`` at
+    ``peak_ops`` and its time by events, the device's idle share of the
+    profiled wall time, and the largest kernels -> the idle share, or None
+    where the profiler recorded nothing."""
     from torch.profiler import ProfilerActivity, profile
 
     step()
@@ -3320,13 +3350,14 @@ def step_device_time(tag: str, step, events_ms: float, flops: float) -> None:
         busy = sum(getattr(e, "device_time_total", 0) for e in events) / 2 / 1e3
         if busy > 0:
             top = sorted(events, key=lambda e: -getattr(e, "device_time_total", 0))[:6]
-            least = flops / PEAK_F32 * 1e3
+            least = flops / peak_ops * 1e3
             log(f"[{tag}] a step on the device (torch.profiler): {busy:.1f} ms of kernels ({least / busy:.1%} of "
-                f"the f32 bound) in {wall_ms:.1f} ms of profiled wall time (idle share {1 - busy / wall_ms:.1%}); "
-                f"{events_ms:.1f} ms by events; the largest kernels: " + "; ".join(
+                f"the {peak_name} bound) in {wall_ms:.1f} ms of profiled wall time (idle share "
+                f"{1 - busy / wall_ms:.1%}); {events_ms:.1f} ms by events; the largest kernels: " + "; ".join(
                     f"{e.key[:60]} {getattr(e, 'device_time_total', 0) / 2 / 1e3:.1f} ms" for e in top))
-            return
+            return 1 - busy / wall_ms
     log(f"[{tag}] a step on the device: not measured (torch.profiler recorded no device time)")
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -3853,6 +3884,174 @@ def ca_device_times(gen: torch.Generator, floor_us: float, t: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# 14. the traced FID CLI, and the bf16 and remat train steps (run early)
+# ---------------------------------------------------------------------------
+
+N_TRACED = 1024           # images a side of the traced FID run
+#: the demangled names of K1's and K2's kernels (csrc/normalize.cu, csrc/avg_pool3x3.cu) in a trace
+K1_SYMBOL, K2_SYMBOL = "normalize_kernel<", "avg_pool3x3_kernel<"
+#: a loss of the bf16 step against the f32 step's from the same state, batch and noise
+BF16_LOSS_TOL = 0.05
+#: the remat step's losses against the remat-off step's (the D updates' backward may sum in another order)
+REMAT_LOSS_TOL = 1e-3
+
+
+def trace_busy_ms(events: list) -> tuple:
+    """(the union of the device rows' intervals, the span of every row of
+    the trace), in ms, from Chrome trace events."""
+    spans = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                   if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy, end = busy + (b - a), b
+        elif b > end:
+            busy, end = busy + (b - end), b
+    timed = [e for e in events if e.get("ph") == "X" and "ts" in e]
+    wall = max(e["ts"] + e.get("dur", 0) for e in timed) - min(e["ts"] for e in timed)
+    return busy / 1e3, wall / 1e3
+
+
+def path_fid_traced(d: dict) -> dict:
+    """(p) ``core.profiling.trace`` around the f32 FID CLI on two folders of
+    1,024 seeded PNGs (``--sqrtm eigh``), early in the process, where
+    torch.profiler has always recorded the card: the Chrome trace must
+    exist and hold K1's and K2's kernels as many times as their counters
+    say they launched; the device's idle share of the traced span (one
+    minus the union of its kernel and copy rows over the span of every row)
+    is printed."""
+    from tise_tpu_torch.core import profiling
+
+    root = os.path.join(SCRATCH, "traced")
+    a, b = (write_folder(os.path.join(root, side), noise_images(N_TRACED, seed, lo))
+            for side, seed, lo in (("a", 31, 0), ("b", 32, 48)))
+    log_dir, saved = os.path.join(root, "trace"), os.path.join(root, "fid.txt")
+    reset_counters()
+    t0 = time.perf_counter()
+    with profiling.trace(log_dir):
+        fid.main(["--path1", a, "--path2", b, "--weights", d["weights"], "--saved_file", saved, "--sqrtm", "eigh",
+                  "--batch-size", str(BATCH)])
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = counts()
+    files = [os.path.join(log_dir, f) for f in os.listdir(log_dir) if f.endswith(".pt.trace.json")]
+    require(len(files) == 1, f"trace() wrote one Chrome trace ({files})")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    require(len(kernels) > 0, "the trace holds device rows")
+    k1 = sum(K1_SYMBOL in e["name"] for e in kernels)
+    k2 = sum(K2_SYMBOL in e["name"] for e in kernels)
+    batches = 2 * -(-N_TRACED // BATCH)
+    require(launches["normalize"] == batches and launches["avg_pool_3x3_s1_p1"] == 9 * batches,
+            f"the traced FID run launched {launches}")
+    require(k1 == launches["normalize"] and k2 == launches["avg_pool_3x3_s1_p1"],
+            f"the trace holds K1 {k1} and K2 {k2} times, the counters say {launches['normalize']} and "
+            f"{launches['avg_pool_3x3_s1_p1']}")
+    value = read_fid(saved)
+    require(np.isfinite(value), f"the traced FID is finite ({value})")
+    busy, wall = trace_busy_ms(events)
+    log(f"[traced fid] trace() around the FID CLI on 2 x {N_TRACED} images: {seconds:.2f} s, FID {value:.4f}; the trace "
+        f"({os.path.getsize(files[0]) / 2 ** 20:.1f} MiB) holds {len(kernels)} kernel rows, K1 {k1} and K2 {k2} "
+        f"(their counters {launches['normalize']} and {launches['avg_pool_3x3_s1_p1']}); the device busy "
+        f"{busy:.1f} ms of the {wall:.1f} ms traced (idle share {1 - busy / wall:.1%}); K1 "
+        f"{sum(e['dur'] for e in kernels if K1_SYMBOL in e['name']) / 1e3:.3f} ms, K2 "
+        f"{sum(e['dur'] for e in kernels if K2_SYMBOL in e['name']) / 1e3:.3f} ms of it")
+    shutil.rmtree(root)
+    return launches
+
+
+def train_variant(t: dict, batch, z, eps, dtype: torch.dtype, remat: bool, device_time: bool = False) -> dict:
+    """One train step at the published width from the seeded state (its
+    metrics, launches, G's BatchNorm buffers, the first step's peak
+    memory), then 3 more by events from a reset peak (steady-state peak
+    memory); with ``device_time`` the step on the device too
+    (``step_device_time``: its idle share)."""
+    cfg = trainer.TrainConfig(gan=dataclasses.replace(TRAIN_GAN, remat=remat), batch_size=TRAIN_BATCH,
+                              ntoken=gen_bench.COCO_NTOKEN)
+    models = trainer.build_models(cfg, t["text_state"], t["image_state"], "cuda", dtype=dtype)
+    state = trainer.init_state(cfg, models, seed=0)
+    step = trainer.make_train_step(cfg, models)
+    torch.cuda.synchronize()
+    reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    metrics = {k: float(v) for k, v in step(state, batch, z, eps).items()}
+    out = {"metrics": metrics, "launches": counts(), "first_peak": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "buffers": {k: v.clone() for k, v in state.gnet.state_dict().items()
+                       if k.endswith(("running_mean", "running_var", "num_batches_tracked"))},
+           "image_dtype": models.image_encoder.emb_cnn_code.weight.dtype}
+    torch.cuda.reset_peak_memory_stats()
+    out["times"] = step_events_ms(lambda: step(state, batch, z, eps))
+    out["peak"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["ms"] = statistics.median(out["times"])
+    if device_time:
+        from torch.utils.flop_counter import FlopCounterMode
+
+        with FlopCounterMode(display=False) as fc:
+            step(state, batch, z, eps)
+        out["idle"] = step_device_time(f"time train {str(dtype)[6:]}", lambda: step(state, batch, z, eps), out["ms"],
+                                       fc.get_total_flops(), PEAK_BF16, "bf16")
+        require(out["idle"] is not None, "torch.profiler recorded the bf16 step")
+    del models, state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_bf16_remat(t: dict) -> list:
+    """(q) The AttnGAN++ train step at the published COCO width (gf 64, df
+    32, R_NUM 3, 256 px, batch 64) on a batch of the training layout, from
+    the seeded state and one draw of noise, three ways: f32 (the
+    reference); f32 with ``GanConfig(remat=True)`` (the G stages
+    checkpointed): losses within ``REMAT_LOSS_TOL`` of f32's, G's running
+    statistics and BatchNorm counters bit-equal after the step, peak memory
+    below the remat-off step's; and bf16 (``build_models(cfg,
+    dtype=torch.bfloat16)``: G, the Ds and the text encoder in bf16, the
+    DAMSM image encoder its bf16 copy, so K2 and its backward run on bf16):
+    losses finite and within ``BF16_LOSS_TOL`` (relative) of f32's.  Each
+    step launches K1 under ``half`` 3 times (the three scales of the real
+    images) and K2 and its backward 9 times (the DAMSM trunk on the 256 px
+    fakes).  Each prints its time by events (median of 3 after the first
+    step) and peak memory; the bf16 step also its time on the device and
+    the device's idle share."""
+    from tise_tpu_torch.models import datasets
+
+    t0 = time.perf_counter()
+    ds = datasets.TextImageDataset(t["data"], "train", words_num=20, captions_per_image=TRAIN_CAPS, seed=1)
+    batch = next(iter(ds.batches(TRAIN_BATCH)))
+    z, eps = generate.draw_noise(1, 0, TRAIN_BATCH, TRAIN_GAN.z_dim, TRAIN_GAN.condition_dim, "cuda")
+    f32 = train_variant(t, batch, z, eps, torch.float32, remat=False)
+    remat = train_variant(t, batch, z, eps, torch.float32, remat=True)
+    bf16 = train_variant(t, batch, z, eps, torch.bfloat16, remat=False, device_time=True)
+    for tag, run in (("f32", f32), ("remat", remat), ("bf16", bf16)):
+        launches = run["launches"]
+        log(f"[train {tag}] a step at gf 64, df 32, R_NUM 3, 256 px, batch {TRAIN_BATCH}: {run['ms']:.1f} ms by events "
+            f"({[round(x, 1) for x in run['times']]}; {TRAIN_BATCH / run['ms'] * 1e3:.1f} images/s), peak memory "
+            f"{run['peak']:.2f} GiB ({run['first_peak']:.2f} over the first step); losses "
+            + ", ".join(f"{k} {v:.4f}" for k, v in run["metrics"].items()) + f"; launches {launches}")
+        require(launches["normalize"] == 3 and launches["avg_pool_3x3_s1_p1"] == 9
+                and launches["avg_pool_3x3_s1_p1_backward"] == 9, f"the {tag} step launched {launches}")
+        require(all(np.isfinite(v) for v in run["metrics"].values()), f"a {tag} loss is not finite: {run['metrics']}")
+    for k, v in f32["metrics"].items():
+        require(abs(remat["metrics"][k] - v) <= REMAT_LOSS_TOL * max(abs(v), 1.0),
+                f"remat {k} {remat['metrics'][k]} against {v}")
+        require(abs(bf16["metrics"][k] - v) <= BF16_LOSS_TOL * max(abs(v), 1.0),
+                f"bf16 {k} {bf16['metrics'][k]} against {v}")
+    same = [k for k, v in f32["buffers"].items() if torch.equal(v, remat["buffers"][k])]
+    require(len(same) == len(f32["buffers"]) > 0,
+            f"remat: {len(f32['buffers']) - len(same)} of G's {len(f32['buffers'])} BatchNorm buffers differ")
+    require(remat["peak"] < f32["peak"], f"remat's peak {remat['peak']:.2f} GiB against {f32['peak']:.2f}")
+    require(bf16["image_dtype"] == torch.bfloat16, "the bf16 step's DAMSM image encoder is its bf16 copy")
+    worst = max(abs(bf16["metrics"][k] - v) / max(abs(v), 1.0) for k, v in f32["metrics"].items())
+    log(f"[train remat] G's {len(same)} BatchNorm buffers bit-equal to the remat-off step's; peak memory "
+        f"{remat['peak']:.2f} GiB against {f32['peak']:.2f} GiB ({remat['peak'] / f32['peak']:.1%}); a step "
+        f"{remat['ms'] / f32['ms']:.2f}x the remat-off step's time")
+    log(f"[train bf16] the losses within {worst:.2%} of the f32 step's (largest, relative); a step "
+        f"{bf16['ms'] / f32['ms']:.2f}x the f32 step's time, peak {bf16['peak']:.2f} GiB; the phase took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return [f32["launches"], remat["launches"], bf16["launches"]]
+
+
+# ---------------------------------------------------------------------------
 # 13. multi-process: the FID and RP-COCO CLIs and the sharded AttnGAN++ step
 #     on two ranks of the card (torch.distributed)
 # ---------------------------------------------------------------------------
@@ -4167,10 +4366,15 @@ def main() -> None:
     }
     mark("the kernel checks")
     d = make_data()
+    # early, where torch.profiler has always recorded the card (late in the process it may record nothing)
+    per_path = [path_fid_traced(d)]
+    tr = make_train_data()
+    per_path += train_bf16_remat(tr)
+    mark("the traced FID run and the bf16 and remat train steps")
     state_dict = fid.load_weights(d["weights"], "weights")
     check_trunks_against_cpu(state_dict)
     f32 = path_fid_f32(d, state_dict)
-    per_path = [f32["launches"], path_fid_fast(d, state_dict, f32), path_is_star(d), path_o_is(d), path_probes()]
+    per_path += [f32["launches"], path_fid_fast(d, state_dict, f32), path_is_star(d), path_o_is(d), path_probes()]
     mark("the Inception paths")
     c = make_clip_data()
     per_path += [path_rp(c), path_pa(c)]
@@ -4215,7 +4419,6 @@ def main() -> None:
     path_calibration(g)
     log(f"[gen] the generation phase took {time.perf_counter() - t_gen:.1f} s")
     t_train = time.perf_counter()
-    tr = make_train_data()
     check_encoder_gradient(tr)
     check_train_step_against_cpu(tr)
     per_path += path_train(tr)

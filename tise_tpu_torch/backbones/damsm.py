@@ -20,7 +20,13 @@ DAMSM loss pulls a gradient back to its input) and, for DAMSM pretraining,
 under autograd).
 
 The LSTM is the library's ``nn.LSTM`` over ``pack_padded_sequence``: the
-reference's semantics directly.  The JAX package computes it as two masked
+reference's semantics directly.  ``RNNEncoder(dtype=torch.bfloat16)`` is
+the JAX ``RNNEncoder(dtype=bfloat16)``: the JAX module casts the embedded
+words to bf16 and its cell multiplies them by its f32 weights, which
+promotes them back, so the cell's gates, ``h`` and ``c`` are f32 and the
+outputs f32.  Here the embedding is rounded to bf16 and the f32 LSTM runs
+on it (the JAX module itself raises in its scan: its bf16 initial carry
+does not match the f32 state the cell gives back).  The JAX package computes it as two masked
 scans over the padded length; its backward scan starts each sequence at its
 own last token, as the packed sequence does.  The trunk is the
 port's InceptionV3, so kernel K2 runs its nine pools on the card.  Module and
@@ -59,19 +65,22 @@ def _tensors(state: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 class RNNEncoder(nn.Module):
     """DAMSM text encoder (eval mode: dropout is the identity)."""
 
-    def __init__(self, ntoken: int, ninput: int = 300, nhidden: int = 128):
+    def __init__(self, ntoken: int, ninput: int = 300, nhidden: int = 128, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.compute_dtype = dtype
         self.encoder = nn.Embedding(ntoken, ninput)
         self.rnn = nn.LSTM(ninput, nhidden, batch_first=True, bidirectional=True)
 
     @classmethod
-    def from_state_dict(cls, state: Mapping[str, Any], *, device=None) -> "RNNEncoder":
+    def from_state_dict(cls, state: Mapping[str, Any], *, device=None,
+                        dtype: torch.dtype = torch.float32) -> "RNNEncoder":
         """An eval-mode encoder on ``device`` (``None`` is the card, and
         raises where there is none) holding a reference-layout state dict;
-        its shapes set the vocabulary and the widths."""
+        its shapes set the vocabulary and the widths; ``dtype`` the JAX
+        module's (the embedding rounded to bf16 under bf16)."""
         device = resolve_device(device)
         ntoken, ninput = np.shape(state["encoder.weight"])
-        model = cls(ntoken, ninput, np.shape(state["rnn.weight_hh_l0"])[1])
+        model = cls(ntoken, ninput, np.shape(state["rnn.weight_hh_l0"])[1], dtype)
         model.load_state_dict(_tensors(state))
         return model.eval().to(device)
 
@@ -98,8 +107,10 @@ class RNNEncoder(nn.Module):
     def _run(self, captions: torch.Tensor, lengths) -> Tuple[torch.Tensor, torch.Tensor]:
         b, t = captions.shape
         lengths = torch.as_tensor(lengths, dtype=torch.int64, device="cpu")
-        packed = pack_padded_sequence(self.encoder(captions.long()), lengths, batch_first=True,
-                                      enforce_sorted=False)
+        emb = self.encoder(captions.long())
+        if self.compute_dtype != torch.float32:  # the JAX cell's weights promote the rounded words back
+            emb = emb.to(self.compute_dtype).to(emb.dtype)
+        packed = pack_padded_sequence(emb, lengths, batch_first=True, enforce_sorted=False)
         out, (h_n, _) = self.rnn(packed)
         out, _ = pad_packed_sequence(out, batch_first=True, total_length=t)
         # h_n is [2, B, H], direction-major; the JAX package concatenates [h_fwd, h_bwd]

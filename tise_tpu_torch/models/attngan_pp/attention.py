@@ -9,6 +9,11 @@ them, and the softmax runs over words with padding masked.
 over words, then a gamma1-scaled softmax over regions.  The mask value is
 ``NEG_INF = -1e9``, not -inf, as in the JAX package: a caption that is all
 padding gives a uniform softmax, not NaN.
+
+Under a bf16 compute dtype the word projection runs in bf16 and both
+products accumulate in f32 and give f32, as the JAX einsums with
+``preferred_element_type=float32`` do (attention.py:36,41,64,68): the
+scores and the softmax are f32, and the words read back are f32.
 """
 
 from __future__ import annotations
@@ -17,6 +22,8 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+
+from tise_tpu_torch.models.attngan_pp.layers import Dense, at_least_f32
 
 NEG_INF = -1e9
 
@@ -27,6 +34,13 @@ def masked_softmax(scores: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.
     if mask is not None:
         scores = scores.masked_fill(mask[:, None, :], NEG_INF)
     return torch.softmax(scores, dim=-1)
+
+
+def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` accumulated in f32 with an f32 result where the operands
+    are bf16 (a product of two bf16 values is exact in f32), in the
+    operands' own dtype otherwise: ``preferred_element_type=float32``."""
+    return torch.bmm(at_least_f32(a), at_least_f32(b))
 
 
 def func_attention(query: torch.Tensor, context: torch.Tensor, gamma1: float,
@@ -45,9 +59,9 @@ def func_attention(query: torch.Tensor, context: torch.Tensor, gamma1: float,
 
 
 class SpatialAttention(nn.Module):
-    def __init__(self, cdf: int, idf: int):
+    def __init__(self, cdf: int, idf: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv_context = nn.Linear(cdf, idf, bias=False)
+        self.conv_context = Dense(cdf, idf, bias=False, dtype=dtype)
 
     def forward(self, h: torch.Tensor, word_embs: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -57,6 +71,6 @@ class SpatialAttention(nn.Module):
         b, idf, ih, iw = h.shape
         keys = self.conv_context(word_embs.transpose(1, 2))  # [B, T, idf]
         q = h.flatten(2).transpose(1, 2)  # [B, ih*iw, idf]
-        attn = masked_softmax(torch.bmm(q, keys.transpose(1, 2)), mask)
-        out = torch.bmm(attn, keys).transpose(1, 2).reshape(b, idf, ih, iw)
+        attn = masked_softmax(bmm_f32(q, keys.transpose(1, 2)), mask)
+        out = bmm_f32(attn, keys).transpose(1, 2).reshape(b, idf, ih, iw)
         return out, attn.reshape(b, ih, iw, -1)

@@ -12,6 +12,8 @@ raw logits, and the losses take BCE with logits, as in the JAX package.
 
 ``update_stats`` asks a call to keep its spectral convs' new u in
 ``pending_u``; ``commit_spectral`` stores them (layers.py::SpectralConv).
+``dtype`` is the JAX modules' compute dtype: under bf16 the logits come
+out bf16, and the parameters and u stay f32.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from tise_tpu_torch.models.attngan_pp.layers import Block3x3LeakyD, DownBlockD, EncodeBy16, commit_spectral
+from tise_tpu_torch.models.attngan_pp.layers import Block3x3LeakyD, Conv2d, DownBlockD, EncodeBy16, commit_spectral
 
 SCALES = (64, 128, 256)
 
@@ -29,12 +31,12 @@ SCALES = (64, 128, 256)
 class DLogitsHead(nn.Module):
     """Conditional or unconditional logits head (discriminators.py:7-31)."""
 
-    def __init__(self, ndf: int, nef: int, conditioned: bool = False):
+    def __init__(self, ndf: int, nef: int, conditioned: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.conditioned = conditioned
         if conditioned:
-            self.joint = Block3x3LeakyD(ndf * 8 + nef, ndf * 8)
-        self.out = nn.Conv2d(ndf * 8, 1, 4, stride=4)  # raw logit (the reference applies Sigmoid here)
+            self.joint = Block3x3LeakyD(ndf * 8 + nef, ndf * 8, dtype)
+        self.out = Conv2d(ndf * 8, 1, 4, stride=4, dtype=dtype)  # raw logit (the reference applies Sigmoid here)
 
     def forward(self, h: torch.Tensor, c: Optional[torch.Tensor], update_stats: bool = False) -> torch.Tensor:
         if self.conditioned and c is not None:
@@ -46,23 +48,23 @@ class DLogitsHead(nn.Module):
 class DNet(nn.Module):
     """The discriminator of one scale (64, 128 or 256; discriminators.py:35-98)."""
 
-    def __init__(self, ndf: int, nef: int, scale: int, b_jcu: bool = True):
+    def __init__(self, ndf: int, nef: int, scale: int, b_jcu: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
         if scale not in SCALES:
             raise ValueError(f"scale {scale} is not one of {SCALES}")
         self.scale, self.b_jcu = scale, b_jcu
-        self.s16 = EncodeBy16(ndf)
+        self.s16 = EncodeBy16(ndf, dtype)
         if scale >= 128:
-            self.s32 = DownBlockD(ndf * 8, ndf * 16)
+            self.s32 = DownBlockD(ndf * 8, ndf * 16, dtype)
             if scale == 128:
-                self.s32_1 = Block3x3LeakyD(ndf * 16, ndf * 8)
+                self.s32_1 = Block3x3LeakyD(ndf * 16, ndf * 8, dtype)
         if scale >= 256:
-            self.s64 = DownBlockD(ndf * 16, ndf * 32)
-            self.s64_1 = Block3x3LeakyD(ndf * 32, ndf * 16)
-            self.s64_2 = Block3x3LeakyD(ndf * 16, ndf * 8)
-        self.cond_head = DLogitsHead(ndf, nef, conditioned=True)
+            self.s64 = DownBlockD(ndf * 16, ndf * 32, dtype)
+            self.s64_1 = Block3x3LeakyD(ndf * 32, ndf * 16, dtype)
+            self.s64_2 = Block3x3LeakyD(ndf * 16, ndf * 8, dtype)
+        self.cond_head = DLogitsHead(ndf, nef, conditioned=True, dtype=dtype)
         if b_jcu:
-            self.uncond_head = DLogitsHead(ndf, nef, conditioned=False)
+            self.uncond_head = DLogitsHead(ndf, nef, conditioned=False, dtype=dtype)
 
     def features(self, x: torch.Tensor, update_stats: bool = False) -> torch.Tensor:
         """Trunk: image NCHW -> [B, 8 ndf, 4, 4]."""

@@ -24,11 +24,24 @@ shards the processes of a group hold (``global_moments``: the JAX module's
 moments over a sharded batch).  Submodules keep the Flax
 names with ``Conv_i`` as ``conv{i}``, ``SpectralConv_i`` as ``conv{i}`` and
 ``SyncBatchNorm_0/bn`` as ``bn`` (``models/weights.py``).
+
+Compute dtype: every block takes the JAX modules' ``dtype`` (f32 or
+bf16), Flax's computation dtype; the parameters, the spectral ``u`` and
+the running statistics stay f32 (``param_dtype``).  ``Dense``,
+``Conv2d`` and ``SpectralConv`` cast their input and their weights to it,
+as Flax's ``Dense`` and ``Conv`` do, and under bf16 add the bias to the
+rounded product, as Flax does (two roundings; f32 keeps the library's
+fused bias).  BatchNorm takes its moments and
+normalises in f32 (Flax promotes them) and gives out its input's dtype.
+Under f32 a tensor keeps its own dtype (``compute_in``), so a float64 copy
+of a module, the tests' referee, computes in float64.
 """
 
 from __future__ import annotations
 
 import contextlib
+import contextvars
+import functools
 from typing import Tuple
 
 import torch
@@ -41,9 +54,17 @@ BN_EPS = 1e-5
 BN_MOMENTUM = 0.1  # torch's convention; Flax's momentum=0.9
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """The logistic function; in a half type as ``jax.nn.sigmoid`` computes
+    it, 1 / (1 + exp(-x)) with each step rounded to the type."""
+    if x.dtype in (torch.float32, torch.float64):
+        return torch.sigmoid(x)
+    return 1 / (1 + torch.exp(-x))
+
+
 def glu(x: torch.Tensor) -> torch.Tensor:
     a, b = x.chunk(2, dim=1)
-    return a * torch.sigmoid(b)
+    return a * sigmoid(b)
 
 
 def global_moments(x: torch.Tensor, dims, group) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -66,16 +87,86 @@ def _channel_shape(x: torch.Tensor) -> Tuple[int, ...]:
     return (1, x.shape[1]) + (1,) * (x.dim() - 2)
 
 
+def compute_in(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` in a module's compute ``dtype``, as Flax casts a layer's input
+    and kernel: a half type casts, f32 leaves the tensor in its own dtype."""
+    return x if dtype == torch.float32 else x.to(dtype)
+
+
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` promoted to f32 where it is a half type (Flax's BatchNorm
+    moments, the attention's f32 accumulation)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def with_bias(product, x: torch.Tensor, weight: torch.Tensor, bias, dtype: torch.dtype,
+              channel_dim: int) -> torch.Tensor:
+    """``product(x, weight, bias)`` in ``dtype``: the library's fused bias
+    under f32; under a half type the bias added to the rounded product, as
+    Flax's ``Dense`` and ``Conv`` add it."""
+    x, weight = compute_in(x, dtype), compute_in(weight, dtype)
+    if bias is None or dtype == torch.float32:
+        return product(x, weight, bias)
+    out = product(x, weight, None)
+    shape = [1] * out.dim()
+    shape[channel_dim] = -1
+    return out + bias.to(dtype).view(shape)
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` computing in ``dtype`` (Flax's ``nn.Dense(dtype=...)``):
+    the input, the weight and the bias cast to it, the parameters kept f32."""
+
+    def __init__(self, cin: int, cout: int, bias: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__(cin, cout, bias=bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return with_bias(F.linear, x, self.weight, self.bias, self.compute_dtype, -1)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in ``dtype`` (Flax's ``nn.Conv(dtype=...)``)."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1, padding: int = 0, bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(cin, cout, kernel, stride=stride, padding=padding, bias=bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return with_bias(self._conv_forward, x, self.weight, self.bias, self.compute_dtype, 1)
+
+
+#: set while ``torch.utils.checkpoint`` recomputes a stage (``recomputing``):
+#: its BatchNorms normalise as in the first pass and leave the running
+#: statistics alone, which the first pass already moved
+_RECOMPUTING = contextvars.ContextVar("recomputing", default=False)
+
+
+@contextlib.contextmanager
+def recomputing():
+    """The recompute context of a checkpointed stage (``GanConfig.remat``)."""
+    token = _RECOMPUTING.set(True)
+    try:
+        yield
+    finally:
+        _RECOMPUTING.reset(token)
+
+
 class _FlaxRunningStats:
     """Train mode as Flax's BatchNorm: normalise with the batch's mean and
-    biased variance, and move both running statistics towards those.  Under
+    biased variance, and move both running statistics towards those (once a
+    forward: not again while a checkpointed stage is recomputed).  Under
     :func:`synced_batch_norm` the batch is the global one whose shards the
     processes of a group hold (the JAX ``SyncBatchNorm`` over a sharded
-    batch)."""
+    batch).  A bf16 input is normalised in f32 and given back in bf16."""
 
     group = None  # a process group while synced
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._normalize(at_least_f32(x)).to(x.dtype)
+
+    def _normalize(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         dims = [0] + list(range(2, x.dim()))
@@ -92,6 +183,8 @@ class _FlaxRunningStats:
         return (x - mean.view(shape)) * scale + self.bias.view(shape)
 
     def _move_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        if _RECOMPUTING.get():
+            return
         self.running_mean.lerp_(mean, self.momentum)
         self.running_var.lerp_(var, self.momentum)
         self.num_batches_tracked += 1
@@ -132,16 +225,16 @@ def nearest_upsample(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
     return F.interpolate(x, scale_factor=factor, mode="nearest")
 
 
-def conv3x3(cin: int, cout: int) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, 3, padding=1, bias=False)
+def conv3x3(cin: int, cout: int, dtype: torch.dtype = torch.float32) -> Conv2d:
+    return Conv2d(cin, cout, 3, padding=1, bias=False, dtype=dtype)
 
 
 class Block3x3Relu(nn.Module):
     """conv3x3(out*2) -> BN -> GLU, keeps spatial size (layers.py:40-42)."""
 
-    def __init__(self, cin: int, features: int):
+    def __init__(self, cin: int, features: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv0 = conv3x3(cin, features * 2)
+        self.conv0 = conv3x3(cin, features * 2, dtype)
         self.bn = batch_norm(features * 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -158,11 +251,11 @@ class UpBlock(Block3x3Relu):
 class ResBlockG(nn.Module):
     """Generator residual block (layers.py:45-60)."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv0 = conv3x3(channels, channels * 2)
+        self.conv0 = conv3x3(channels, channels * 2, dtype)
         self.bn1 = batch_norm(channels * 2)
-        self.conv1 = conv3x3(channels, channels)
+        self.conv1 = conv3x3(channels, channels, dtype)
         self.bn2 = batch_norm(channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -190,9 +283,10 @@ class SpectralConv(nn.Module):
     call of a step starts from the u of the step's start, as the JAX
     step's discarded ``mutable`` collections do."""
 
-    def __init__(self, cin: int, features: int, kernel: int, stride: int = 1, padding: int = 1, bias: bool = True):
+    def __init__(self, cin: int, features: int, kernel: int, stride: int = 1, padding: int = 1, bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.stride, self.padding = stride, padding
+        self.stride, self.padding, self.compute_dtype = stride, padding, dtype
         self.weight = nn.Parameter(torch.empty(features, cin, kernel, kernel))
         self.bias = nn.Parameter(torch.zeros(features)) if bias else None
         self.register_buffer("u", torch.ones(features))
@@ -206,8 +300,9 @@ class SpectralConv(nn.Module):
             u_new = l2_normalize(w_mat @ v)
         if update_stats:
             self.pending_u = u_new
-        sigma = u_new @ (w_mat @ v)
-        return F.conv2d(x, self.weight / sigma, self.bias, self.stride, self.padding)
+        sigma = u_new @ (w_mat @ v)  # in the parameters' dtype; the normalised kernel is cast
+        return with_bias(lambda x, w, b: F.conv2d(x, w, b, self.stride, self.padding), x, self.weight / sigma,
+                         self.bias, self.compute_dtype, 1)
 
     def commit_u(self) -> None:
         if self.pending_u is not None:
@@ -226,16 +321,22 @@ def leaky(x: torch.Tensor) -> torch.Tensor:
     """LeakyReLU(0.2) in place on a conv's output, which nothing else reads:
     autograd then keeps one tensor for the activation and the next conv's
     input, not two (a D pass at 256 px and batch 64 holds gigabytes of
-    them); the values are those of ``F.leaky_relu``."""
-    return F.leaky_relu(x, 0.2, inplace=True)
+    them); the values are those of ``F.leaky_relu``, with the slope in the
+    input's dtype as JAX's ``leaky_relu`` takes it (0.19921875 in bf16)."""
+    return F.leaky_relu(x, _leaky_slope(x.dtype), inplace=True)
+
+
+@functools.lru_cache(maxsize=None)
+def _leaky_slope(dtype: torch.dtype) -> float:
+    return torch.tensor(0.2, dtype=dtype).item()
 
 
 class DownBlockD(nn.Module):
     """Spectral conv4x4 stride 2 + LeakyReLU(0.2) (layers.py:70-74)."""
 
-    def __init__(self, cin: int, features: int):
+    def __init__(self, cin: int, features: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv0 = SpectralConv(cin, features, 4, stride=2, padding=1)
+        self.conv0 = SpectralConv(cin, features, 4, stride=2, padding=1, dtype=dtype)
 
     def forward(self, x: torch.Tensor, update_stats: bool = False) -> torch.Tensor:
         return leaky(self.conv0(x, update_stats))
@@ -244,9 +345,9 @@ class DownBlockD(nn.Module):
 class Block3x3LeakyD(nn.Module):
     """Spectral conv3x3 + LeakyReLU(0.2), keeps the size (layers.py:64-67)."""
 
-    def __init__(self, cin: int, features: int):
+    def __init__(self, cin: int, features: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv0 = SpectralConv(cin, features, 3, stride=1, padding=1)
+        self.conv0 = SpectralConv(cin, features, 3, stride=1, padding=1, dtype=dtype)
 
     def forward(self, x: torch.Tensor, update_stats: bool = False) -> torch.Tensor:
         return leaky(self.conv0(x, update_stats))
@@ -256,11 +357,11 @@ class EncodeBy16(nn.Module):
     """Four stride-2 spectral convs: image -> 1/16 the side, 8 ndf channels
     (layers.py:78-90)."""
 
-    def __init__(self, ndf: int):
+    def __init__(self, ndf: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         cin = 3
         for i, mult in enumerate((1, 2, 4, 8)):
-            setattr(self, f"down{i}", DownBlockD(cin, ndf * mult))
+            setattr(self, f"down{i}", DownBlockD(cin, ndf * mult, dtype))
             cin = ndf * mult
 
     def forward(self, x: torch.Tensor, update_stats: bool = False) -> torch.Tensor:

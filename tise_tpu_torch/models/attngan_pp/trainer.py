@@ -41,7 +41,15 @@ number of processes, and the gradients are averaged over the processes
 before each Adam update (``average_gradients``: one forward feeds several
 backward passes, so this is done by hand rather than by DDP).
 
-Left out: the JAX step's ``ablate`` profiling hook and ``GanConfig.remat``.
+``build_models(cfg, dtype=torch.bfloat16)`` is the JAX ``build_models(cfg,
+bfloat16)``: G, the Ds and the text encoder compute in bf16 (the D losses
+on bf16 logits, as in JAX), the parameters, Adam, the u and the running
+statistics stay f32, the image encoder is its bf16 copy, and the DAMSM
+losses take its features in f32.  ``GanConfig(remat=True)`` checkpoints
+G's stages (``generator.GNet``).  ``smoke_train`` and ``main --smoke``
+run the JAX package's two tiny steps.
+
+Left out: the JAX step's ``ablate`` profiling hook.
 """
 
 from __future__ import annotations
@@ -164,36 +172,47 @@ def adam(module: torch.nn.Module, lr: float, cfg: TrainConfig) -> torch.optim.Ad
     return torch.optim.Adam(module.parameters(), lr=lr, betas=(cfg.beta1, cfg.beta2), eps=1e-8)
 
 
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def build_models(cfg: TrainConfig, text_state: Optional[Dict[str, Any]] = None,
-                 image_state: Optional[Dict[str, Any]] = None, device=None) -> Models:
+                 image_state: Optional[Dict[str, Any]] = None, device=None,
+                 dtype: torch.dtype = torch.float32) -> Models:
     """G in train mode, one D a scale, and the frozen DAMSM encoders on
     ``device`` (``None`` is the card, and raises where there is none).
     Encoder state dicts in the reference's layout; seeded ones where absent
     (smoke runs), as the JAX ``init_state`` initialises them at random.
-    Under ``encoder_precision="fast"`` the image encoder is its bf16 copy."""
+    ``dtype`` is the compute dtype of G, the Ds and the text encoder (the
+    JAX ``build_models(cfg, dtype)``); their parameters stay f32.  The
+    image encoder is its bf16 copy under ``dtype=torch.bfloat16`` or
+    ``encoder_precision="fast"``."""
+    if dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute dtype {dtype} is not one of {COMPUTE_DTYPES}")
     device = resolve_device(device)
     gan = cfg.gan
-    gnet = GNet(gan).to(device).train()
-    dnets = {s: DNet(gan.df_dim, gan.embedding_dim, s).to(device) for s in SCALES[:gan.branch_num]}
-    return Models(gnet, dnets, *frozen_encoders(cfg, text_state, image_state, device))
+    gnet = GNet(gan, dtype).to(device).train()
+    dnets = {s: DNet(gan.df_dim, gan.embedding_dim, s, dtype=dtype).to(device) for s in SCALES[:gan.branch_num]}
+    return Models(gnet, dnets, *frozen_encoders(cfg, text_state, image_state, device, dtype))
 
 
 def frozen_encoders(cfg: TrainConfig, text_state: Optional[Dict[str, Any]], image_state: Optional[Dict[str, Any]],
-                    device: torch.device) -> Tuple[damsm.RNNEncoder, damsm.CNNEncoder]:
+                    device: torch.device, dtype: torch.dtype = torch.float32
+                    ) -> Tuple[damsm.RNNEncoder, damsm.CNNEncoder]:
     """The frozen DAMSM encoders of the G loss on ``device``, seeded where a
-    state dict is absent; the image encoder's bf16 copy under
-    ``encoder_precision="fast"``."""
+    state dict is absent: the text encoder in ``dtype``, the image
+    encoder's bf16 copy under a bf16 ``dtype`` or ``encoder_precision="fast"``
+    (the JAX ``enc_dtype``)."""
     gan = cfg.gan
     if text_state is None:
         text_state = damsm.random_rnn_state_dict(0, cfg.ntoken, nhidden=gan.embedding_dim // 2)
     if image_state is None:
         image_state = damsm.random_cnn_state_dict(0, nef=gan.embedding_dim)
-    text_encoder = damsm.RNNEncoder.from_state_dict(text_state, device=device).requires_grad_(False)
+    text_encoder = damsm.RNNEncoder.from_state_dict(text_state, device=device, dtype=dtype).requires_grad_(False)
     image_encoder = damsm.CNNEncoder.from_state_dict(image_state, device=device).requires_grad_(False)
-    if cfg.encoder_precision == "fast":
-        image_encoder = image_encoder.bf16_copy()
-    elif cfg.encoder_precision != "highest":
+    if cfg.encoder_precision not in ("highest", "fast"):
         raise ValueError(f"unknown encoder_precision {cfg.encoder_precision!r}")
+    if cfg.encoder_precision == "fast" or dtype == torch.bfloat16:
+        image_encoder = image_encoder.bf16_copy()
     return text_encoder, image_encoder
 
 
@@ -366,3 +385,45 @@ def synthetic_batch(cfg: TrainConfig, rng: np.random.RandomState, batch_size: in
     imgs = tuple(rng.randint(0, 256, (batch_size, s, s, 3)).astype(np.uint8) for s in SCALES[:gan.branch_num])
     return Batch(images=imgs, captions=caps, cap_lens=lens,
                  class_ids=rng.randint(0, 20, size=batch_size).astype(np.int32))
+
+
+def smoke_train(n_steps: int = 2, batch_size: int = 4, gf_dim: int = 16, df_dim: int = 16,
+                device=None) -> Dict[str, float]:
+    """A couple of tiny steps end to end on ``device`` (``None`` is the
+    card) at the JAX smoke's widths (gf 16, df 16, z and condition 16,
+    embedding 32, 8 words, vocabulary 100), with seeded weights and
+    synthetic batches -> the last step's metrics."""
+    from tise_tpu_torch.models.generate import draw_noise
+
+    gan = GanConfig(gf_dim=gf_dim, df_dim=df_dim, z_dim=16, condition_dim=16, embedding_dim=32, words_num=8)
+    cfg = TrainConfig(gan=gan, batch_size=batch_size, ntoken=100)
+    models = build_models(cfg, device=device)
+    state = init_state(cfg, models)
+    step = make_train_step(cfg, models)
+    rng = np.random.RandomState(0)
+    metrics: Dict[str, torch.Tensor] = {}
+    for i in range(n_steps):
+        z, eps = draw_noise(1, i, batch_size, gan.z_dim, gan.condition_dim, state.device)
+        metrics = step(state, synthetic_batch(cfg, rng, batch_size), z, eps)
+    return {k: float(v) for k, v in metrics.items()}
+
+
+def main(argv=None) -> None:
+    """``--smoke`` runs the two tiny steps and prints their metrics; full
+    training is ``python -m tise_tpu_torch.models.main``."""
+    import argparse
+
+    p = argparse.ArgumentParser()
+    p.add_argument("--smoke", action="store_true", help="run a tiny 2-step training smoke test")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device of the smoke: 'cuda' (default) raises when no card is found, 'cpu' must be "
+                        "asked for (the JAX CLI's default is its CPU)")
+    args = p.parse_args(argv)
+    if not args.smoke:
+        p.error("full training needs a dataset: python -m tise_tpu_torch.models.main (use --smoke for a check)")
+    m = smoke_train(device=resolve_device(args.device))
+    print({k: round(v, 4) for k, v in m.items()})
+
+
+if __name__ == "__main__":
+    main()

@@ -17,7 +17,11 @@ then two memory stages (:127-193):
     residual blocks and the upsample.
 
 Channel order of the concatenations as in the JAX package: [h, mem_out] and
-[h_new, h_new].
+[h_new, h_new].  ``dtype`` is the JAX modules' compute dtype
+(``attngan_pp/layers.py``): under bf16 the memory runs in bf16, the
+pixel-to-key scores accumulate in f32 and their softmax is f32, and the
+readout casts the softmax back to bf16 before it reads the values, as the
+JAX stage does (``attn.astype(d)``).
 """
 
 from __future__ import annotations
@@ -28,10 +32,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tise_tpu_torch.models.attngan_pp.attention import masked_softmax
+from tise_tpu_torch.models.attngan_pp.attention import bmm_f32, masked_softmax
 from tise_tpu_torch.models.attngan_pp.generator import (CANet, GanConfig, GetImage, fc_to_4x4, res_blocks,
                                                         run_res_blocks)
-from tise_tpu_torch.models.attngan_pp.layers import UpBlock, batch_norm
+from tise_tpu_torch.models.attngan_pp.layers import Conv2d, Dense, UpBlock, batch_norm, sigmoid
 
 SCALES = (4, 8, 16, 32, 64)  # the plain upsampling part: 4 -> 64 px
 MULTS = (8, 4, 2, 1)  # its widths after each upsample, in gf
@@ -40,32 +44,32 @@ MULTS = (8, 4, 2, 1)  # its widths after each upsample, in gf
 class MemoryStage(nn.Module):
     """NEXT_STAGE_G with the memory mechanism (generators.py:127-193)."""
 
-    def __init__(self, ngf: int, nef: int, r_num: int = 2):
+    def __init__(self, ngf: int, nef: int, r_num: int = 2, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.r_num = r_num
-        self.A = nn.Linear(nef, 1, bias=False)
-        self.B = nn.Linear(ngf, 1, bias=False)
-        self.M_w = nn.Linear(nef, ngf * 2)
-        self.M_r = nn.Linear(ngf, ngf * 2)
-        self.key = nn.Linear(ngf * 2, ngf)
-        self.value = nn.Linear(ngf * 2, ngf)
-        self.response_gate = nn.Conv2d(ngf * 2, 1, 1)
-        res_blocks(self, r_num, ngf * 2)
-        self.up = UpBlock(ngf * 2, ngf)
+        self.A = Dense(nef, 1, bias=False, dtype=dtype)
+        self.B = Dense(ngf, 1, bias=False, dtype=dtype)
+        self.M_w = Dense(nef, ngf * 2, dtype=dtype)
+        self.M_r = Dense(ngf, ngf * 2, dtype=dtype)
+        self.key = Dense(ngf * 2, ngf, dtype=dtype)
+        self.value = Dense(ngf * 2, ngf, dtype=dtype)
+        self.response_gate = Conv2d(ngf * 2, 1, 1, dtype=dtype)
+        res_blocks(self, r_num, ngf * 2, dtype)
+        self.up = UpBlock(ngf * 2, ngf, dtype)
 
     def forward(self, h: torch.Tensor, word_embs: torch.Tensor, mask: Optional[torch.Tensor]):
         b, ngf, ih, iw = h.shape
         words = word_embs.transpose(1, 2)  # [B, T, nef]
         h_avg = h.mean(dim=(2, 3)).detach()  # [B, ngf]
-        writing_gate = torch.sigmoid(self.A(words) + self.B(h_avg)[:, None, :])  # [B, T, 1]
+        writing_gate = sigmoid(self.A(words) + self.B(h_avg)[:, None, :])  # [B, T, 1]
         m_w = F.relu(self.M_w(words))
         m_r = F.relu(self.M_r(h_avg))[:, None, :]
         memory = m_w * writing_gate + m_r * (1.0 - writing_gate)  # [B, T, 2ngf]
         key, value = F.relu(self.key(memory)), F.relu(self.value(memory))
         q = h.flatten(2).transpose(1, 2)  # [B, ih*iw, ngf]
-        attn = masked_softmax(torch.bmm(q, key.transpose(1, 2)), mask)
-        mem_out = torch.bmm(attn, value).transpose(1, 2).reshape(b, ngf, ih, iw)
-        gate = torch.sigmoid(self.response_gate(torch.cat([h, mem_out], dim=1)))
+        attn = masked_softmax(bmm_f32(q, key.transpose(1, 2)), mask)
+        mem_out = torch.bmm(attn.to(value.dtype), value).transpose(1, 2).reshape(b, ngf, ih, iw)
+        gate = sigmoid(self.response_gate(torch.cat([h, mem_out], dim=1)))
         h_new = h * (1.0 - gate) + gate * mem_out
         x = run_res_blocks(self, self.r_num, torch.cat([h_new, h_new], dim=1))
         return self.up(x), attn.reshape(b, ih, iw, -1)
@@ -75,23 +79,23 @@ class CounterGNet(nn.Module):
     """Seven-scale out-skip generator (generators.py:207-295) -> ([images
     4..256 px NCHW], [two attention maps [B, ih, iw, T]], mu, logvar)."""
 
-    def __init__(self, cfg: GanConfig = GanConfig()):
+    def __init__(self, cfg: GanConfig = GanConfig(), dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
         ngf = cfg.gf_dim
-        self.ca_net = CANet(cfg.embedding_dim, cfg.condition_dim)
-        self.fc = nn.Linear(cfg.condition_dim + cfg.z_dim, ngf * 16 * 4 * 4 * 2, bias=False)
+        self.ca_net = CANet(cfg.embedding_dim, cfg.condition_dim, dtype)
+        self.fc = Dense(cfg.condition_dim + cfg.z_dim, ngf * 16 * 4 * 4 * 2, bias=False, dtype=dtype)
         self.fc_bn = batch_norm(ngf * 16 * 4 * 4 * 2, dims=1)
-        self.img_4 = GetImage(ngf * 16)
+        self.img_4 = GetImage(ngf * 16, dtype)
         cin = ngf * 16
         for s, m in zip(SCALES, MULTS):
-            setattr(self, f"up_{s}_to_{2 * s}", UpBlock(cin, ngf * m))
-            setattr(self, f"img_{2 * s}", GetImage(ngf * m))
+            setattr(self, f"up_{s}_to_{2 * s}", UpBlock(cin, ngf * m, dtype))
+            setattr(self, f"img_{2 * s}", GetImage(ngf * m, dtype))
             cin = ngf * m
-        self.mem_64_to_128 = MemoryStage(ngf, cfg.embedding_dim, cfg.r_num)
-        self.img_128 = GetImage(ngf)
-        self.mem_128_to_256 = MemoryStage(ngf, cfg.embedding_dim, cfg.r_num)
-        self.img_256 = GetImage(ngf)
+        self.mem_64_to_128 = MemoryStage(ngf, cfg.embedding_dim, cfg.r_num, dtype)
+        self.img_128 = GetImage(ngf, dtype)
+        self.mem_128_to_256 = MemoryStage(ngf, cfg.embedding_dim, cfg.r_num, dtype)
+        self.img_256 = GetImage(ngf, dtype)
 
     def forward(self, z: torch.Tensor, sent_emb: torch.Tensor, word_embs: torch.Tensor,
                 mask: Optional[torch.Tensor], eps: torch.Tensor

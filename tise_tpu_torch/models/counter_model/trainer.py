@@ -36,9 +36,9 @@ from tise_tpu_torch.core.config import resolve_device
 from tise_tpu_torch.models import weights as m_weights
 from tise_tpu_torch.models.attngan_pp import losses
 from tise_tpu_torch.models.attngan_pp.generator import GanConfig
-from tise_tpu_torch.models.attngan_pp.trainer import (Batch, TrainConfig, adam, ema_from, ema_generator_state,
-                                                      frozen_encoders, load_strict, synthetic_batch, update_ema,
-                                                      upload)
+from tise_tpu_torch.models.attngan_pp.trainer import (COMPUTE_DTYPES, Batch, TrainConfig, adam, ema_from,
+                                                      ema_generator_state, frozen_encoders, load_strict,
+                                                      synthetic_batch, update_ema, upload)
 from tise_tpu_torch.models.counter_model.discriminator import MSGDNet
 from tise_tpu_torch.models.counter_model.generator import CounterGNet
 from tise_tpu_torch.ops.preprocess import normalize
@@ -103,14 +103,19 @@ def multiscale_reals(img256: torch.Tensor) -> Tuple[torch.Tensor, ...]:
 
 
 def build_models(cfg: TrainConfig, text_state: Optional[Dict[str, Any]] = None,
-                 image_state: Optional[Dict[str, Any]] = None, device=None) -> CounterModels:
+                 image_state: Optional[Dict[str, Any]] = None, device=None,
+                 dtype: torch.dtype = torch.float32) -> CounterModels:
     """G in train mode, the MSG D and the frozen DAMSM encoders on ``device``
     (``None`` is the card, and raises where there is none); seeded encoders
-    where a state dict is absent."""
+    where a state dict is absent; ``dtype`` the compute dtype, as in the
+    AttnGAN++ ``build_models``."""
+    if dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute dtype {dtype} is not one of {COMPUTE_DTYPES}")
     device = resolve_device(device)
     gan = cfg.gan
-    return CounterModels(CounterGNet(gan).to(device).train(), MSGDNet(gan.df_dim, gan.embedding_dim).to(device),
-                         *frozen_encoders(cfg, text_state, image_state, device))
+    return CounterModels(CounterGNet(gan, dtype).to(device).train(),
+                         MSGDNet(gan.df_dim, gan.embedding_dim, dtype=dtype).to(device),
+                         *frozen_encoders(cfg, text_state, image_state, device, dtype))
 
 
 def init_state(cfg: TrainConfig, models: CounterModels, seed: int = 0,

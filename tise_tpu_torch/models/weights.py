@@ -38,10 +38,10 @@ GENERATORS = {"attngan_pp": GNet, "counter_model": CounterGNet}
 _BN_LEAVES = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
 
 
-def make_generator(model: str, cfg: GanConfig) -> nn.Module:
+def make_generator(model: str, cfg: GanConfig, dtype: torch.dtype = torch.float32) -> nn.Module:
     if model not in GENERATORS:
         raise ValueError(f"unknown generator {model!r}; one of {sorted(GENERATORS)}")
-    return GENERATORS[model](cfg)
+    return GENERATORS[model](cfg, dtype)
 
 
 def _torch_segment(seg: str) -> str:
@@ -148,11 +148,13 @@ def random_g_state_dict(seed: int, cfg: GanConfig, model: str = "attngan_pp") ->
     return out
 
 
-def load_generator(state: Mapping[str, Any], cfg: GanConfig, model: str = "attngan_pp", device=None) -> nn.Module:
+def load_generator(state: Mapping[str, Any], cfg: GanConfig, model: str = "attngan_pp", device=None,
+                   dtype: torch.dtype = torch.float32) -> nn.Module:
     """An eval-mode generator on ``device`` (``None`` is the card, and raises
-    where there is none) holding ``state``, loaded strictly."""
+    where there is none) holding ``state``, loaded strictly, computing in
+    ``dtype`` (its parameters f32 whatever the dtype)."""
     device = resolve_device(device)
-    net = make_generator(model, cfg)
+    net = make_generator(model, cfg, dtype)
     net.load_state_dict({k: torch.tensor(np.asarray(v)) for k, v in state.items()}, strict=True)
     return net.eval().to(device)
 
